@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""GPT-2 train-step throughput on one chip (VERDICT r3 #7).
+"""GPT-2 train-step throughput on one GPU.
 
 Measures tokens/s/chip for the full compiled train step (fwd + Pallas
 flash bwd + optax update) with the scan-chained linear-fit methodology

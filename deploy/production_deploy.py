@@ -149,7 +149,7 @@ class ProductionDeployer:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tag", default="pfa-tpu:latest")
+    ap.add_argument("--tag", default="pfa-gpu:latest")
     ap.add_argument("--regions", nargs="*", default=None)
     ap.add_argument("--execute", action="store_true",
                     help="actually run docker/kubectl (default: dry run)")

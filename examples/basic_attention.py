@@ -1,6 +1,6 @@
 """Basic usage: the adaptive engine and the drop-in Flax module.
 
-Mirrors the reference's examples/ quickstarts on the TPU engine.
+Mirrors the reference's examples/ quickstarts on the attention engine.
 Run: python examples/basic_attention.py
 """
 

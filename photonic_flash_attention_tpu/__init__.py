@@ -1,16 +1,15 @@
-"""photonic_flash_attention_tpu — a TPU-native attention engine.
+"""photonic_flash_attention_tpu — an attention engine for NVIDIA GPUs in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference ``danieleschmidt/Photonic-Flash-Attention``: a hybrid-kernel
-attention engine (fused short-seq / flash-tiled / quantized / paged-decode
-/ ring) with an adaptive measured-latency router, an HBM paged KV-cache,
-drop-in module APIs with HF-model conversion, and real multi-chip
-distribution over a ``jax.sharding.Mesh``.
+A JAX/XLA/Pallas framework with the capabilities of the reference
+``danieleschmidt/Photonic-Flash-Attention``: an attention engine (fused
+short-seq / flash-tiled / paged-decode / ring) with a measured-latency
+router, a paged KV cache, drop-in module APIs with HF-model conversion,
+and multi-device distribution over a ``jax.sharding.Mesh``.
 
-What the reference *simulates* (analog low-precision compute, E/O/E
-conversion, crossover dispatch), this package makes *real* as quantized
-TPU kernels with a measured cost model; what the reference *fakes*
-(distribution), this package implements with XLA collectives.
+What the reference *simulates* (analog low-precision compute, crossover
+dispatch), this package runs as GPU kernels with a measured cost model;
+what the reference *fakes* (distribution), this package implements with
+XLA collectives.
 """
 
 from .config import GlobalConfig, get_config, reset_config, set_global_config
@@ -30,12 +29,6 @@ def __getattr__(name):
     # Lazy re-exports keep `import photonic_flash_attention_tpu` light.
     if name in (
         "flash_attention",
-        "flash_attention_fp8",
-        "flash_attention_fp8qk",
-        "flash_attention_int8",
-        "flash_attention_int8full",
-        "flash_attention_int8qk",
-        "flash_attention_quant",
         "fused_attention",
     ):
         from . import ops

@@ -1,10 +1,10 @@
-"""Global configuration for the TPU attention engine.
+"""Global configuration for the attention engine.
 
-TPU-native rebirth of the reference's ``GlobalConfig`` singleton
+The rebirth of the reference's ``GlobalConfig`` singleton
 (cf. reference src/photonic_flash_attention/config.py:8-101): one typed
 dataclass singleton, environment-variable overrides, and validated
 ``update(**kwargs)``.  The photonic knobs (wavelengths, optical power,
-modulator resolution) become their TPU analogues: quantization mode,
+modulator resolution) become their analogues here: quantization mode,
 kernel block sizes, router thresholds, and mesh axis names.
 """
 
@@ -22,17 +22,16 @@ class GlobalConfig:
 
     Attributes mirror the *capabilities* of the reference config
     (device priority, routing threshold, memory fraction, thermal/logging
-    flags) re-expressed for a TPU inference engine.
+    flags) re-expressed for a GPU inference engine.
     """
 
     # --- kernel routing (reference: photonic_threshold=512, config.py:14) ---
     #: sequence length at/above which the tiled flash kernel is preferred
     #: over the fused short-sequence path.
     flash_threshold: int = 512
-    #: minimum total tokens (batch * seq) for the flash kernel: small
-    #: batches at short sequences underfill the Pallas grid and the fused
-    #: XLA path wins (measured B=1: dense beats flash up to S~1024 on
-    #: v5e). The reference's heuristic similarly gated on total ops
+    #: minimum total tokens (batch * seq) for the flash kernel: below it
+    #: the fused XLA path serves the call. Not measured on the GPU yet;
+    #: the reference's heuristic similarly gated on total ops
     #: (hybrid_router.py:160-173 total-ops > 1e6 -> photonic).
     flash_min_tokens: int = 2048
     #: sequence length at/above which ring (sequence-parallel) attention is
@@ -55,25 +54,20 @@ class GlobalConfig:
     #: ``(1-w)*latency_ms + w*energy_mj/board_watts`` — the energy term
     #: expressed as the time an equal-energy kernel would take at board
     #: power, so int8-QK's lower HBM traffic can break near-latency ties
-    #: (benchmarks/energy_table.py shows it winning both from S=4K).
+    #: (a lower-traffic kernel can win a near-latency tie).
     energy_weight: float = 0.0
 
     # --- quantization (reference: 6-bit modulator, matrix_mult.py:36) ---
-    #: default quantization mode for attention activations:
-    #: "bf16" | "fp8" | "int8".
+    #: quantization mode: "bf16" | "int8" (int8 quantizes the KV cache;
+    #: attention activations stay bf16).
     quant_mode: str = "bf16"
     #: dtype used for the KV cache payload: "bf16" | "int8".
     kv_cache_dtype: str = "bf16"
     #: block size (tokens) for per-block quantization scales.
     quant_block_size: int = 128
 
-    # --- kernel tiling defaults (autotuner may override per-shape;
-    # 512x512 measured best on v5e after the lane-replicated-stats
-    # kernel rewrite — see ops/flash.py) ---
-    block_q: int = 512
-    block_kv: int = 512
-    #: paged KV-cache page size in tokens.
-    page_size: int = 128
+    #: paged KV-cache page size in tokens (a power of two).
+    page_size: int = 64
 
     # --- memory (reference: max_memory_fraction=0.8, config.py) ---
     max_memory_fraction: float = 0.8
@@ -114,8 +108,6 @@ _ENV_OVERRIDES: Tuple[Tuple[str, str, Any], ...] = (
     ("PFA_RING_THRESHOLD", "ring_threshold", int),
     ("PFA_QUANT_MODE", "quant_mode", str),
     ("PFA_KV_CACHE_DTYPE", "kv_cache_dtype", str),
-    ("PFA_BLOCK_Q", "block_q", int),
-    ("PFA_BLOCK_KV", "block_kv", int),
     ("PFA_PAGE_SIZE", "page_size", int),
     ("PFA_LOG_LEVEL", "log_level", str),
     ("PFA_ENABLE_PROFILING", "enable_profiling", lambda v: v.lower() in ("1", "true", "yes")),

@@ -4,8 +4,9 @@ The rebirth of two reference mechanisms:
 
 * ``_compute_optimal_tile_size``'s memory-derived binary search (reference
   core/flash_attention_3.py:264-293) becomes a **measured** sweep over
-  VMEM-feasible (block_q, block_kv) candidates, because on TPU the right
-  tile size is an empirical property of the Mosaic pipeline, not a formula.
+  (block_q, block_kv) candidates that fit a thread block's shared memory
+  and registers, because the right tile is an empirical property of the
+  compiled kernel, not a formula.
 * ``AutonomousOptimizer``'s workload-keyed profiles with persistence and
   staleness-based re-optimization (reference core/autonomous_optimizer.py:
   151-191, 537-576) become a JSON-backed profile store keyed on the
@@ -28,10 +29,12 @@ from ..utils.logging import get_logger
 
 logger = get_logger("autotuner")
 
-_LANE = 128
-# VMEM working-set budget per grid cell; TPU VMEM is ~16-128MB/core, stay
-# conservative so double-buffered pipelines fit.
-_VMEM_BUDGET_BYTES = 8 * 1024 * 1024
+#: Shared memory one thread block may use on Hopper (227 KB).
+_SMEM_BYTES = 227 * 1024
+#: Register file share of one 4-warp program kept for the score tile and
+#: the accumulator (128 threads x ~200 32-bit registers).
+_REG_BYTES = 128 * 200 * 4
+_PIPELINE_STAGES = 2
 
 
 def _p2(x: int) -> int:
@@ -49,33 +52,26 @@ class TuneResult:
 def candidate_blocks(
     q_len: int, kv_len: int, head_dim: int, dtype_bytes: int = 2
 ) -> List[Tuple[int, int]]:
-    """VMEM-feasible (block_q, block_kv) candidates.
+    """(block_q, block_kv) tiles of the flash kernel that fit the card.
 
-    The feasibility check is the honest version of the reference's
-    memory-budget binary search: q-tile + k-tile + v-tile + fp32 scores +
-    fp32 scratch must fit the per-cell VMEM budget.
+    Powers of two from 16 (the smallest tensor-core tile) to 128, clamped
+    to the sequence. A tile fits when the q tile plus the pipelined K and
+    V tiles fit shared memory, and the fp32 score tile plus accumulator
+    fit the registers of one program.
     """
-    d = max(_LANE, ((head_dim + _LANE - 1) // _LANE) * _LANE)
+    d = max(16, _p2(head_dim))
     out = []
-    for bq in (128, 256, 512, 1024):
-        if bq > max(_LANE, _p2(q_len)):
+    for bq in (16, 32, 64, 128):
+        if bq > max(16, _p2(q_len)):
             continue
-        for bkv in (128, 256, 512, 1024, 2048):
-            if bkv > max(_LANE, _p2(kv_len)):
+        for bkv in (16, 32, 64, 128):
+            if bkv > max(16, _p2(kv_len)):
                 continue
-            # Only the STREAMED tiles (q, k, v) are double-buffered by
-            # the Pallas pipeline; scores and scratch are single-copy.
-            # (The previous 2x-everything estimate wrongly excluded
-            # 1024x1024 at D=128 — the measured-fastest int8-QK tile,
-            # benchmarks/flash_d128_sweep.py.)
-            vmem = (
-                2 * (bq * d + 2 * bkv * d) * dtype_bytes  # q,k,v x2 buffers
-                + bq * bkv * 4  # fp32 scores
-                + bq * (2 * _LANE + d) * 4  # m, l, acc scratch
-            )
-            if vmem <= _VMEM_BUDGET_BYTES:
+            smem = (bq * d + 2 * _PIPELINE_STAGES * bkv * d) * dtype_bytes
+            regs = (bq * bkv + bq * d) * 4
+            if smem <= _SMEM_BYTES and regs <= _REG_BYTES:
                 out.append((bq, bkv))
-    return out or [(128, 128)]
+    return out
 
 
 class Autotuner:
@@ -135,9 +131,8 @@ class Autotuner:
                 t0 = time.perf_counter()
                 for _ in range(iters):
                     out = fn()
-                # Host fetch forces true completion; block_until_ready alone
-                # is unreliable through remote-dispatch runtimes. The fetch
-                # overhead is identical across candidates, so ranking holds.
+                # A host fetch forces completion; its overhead is identical
+                # across candidates, so the ranking holds.
                 float(jnp.sum(out))
                 dt_ms = (time.perf_counter() - t0) / iters * 1e3
             except Exception as e:  # noqa: BLE001 - any compile/run failure skips

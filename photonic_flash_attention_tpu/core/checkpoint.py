@@ -3,7 +3,7 @@
 The reference's only persistence is the autonomous optimizer's pickled
 learned state (reference core/autonomous_optimizer.py:94-99, 537-576) and
 CLI calibration JSONs (cli.py:195-230); it has **no model checkpointing**
-(SURVEY.md §5.4). A production TPU serving stack needs real checkpoint/
+(SURVEY.md §5.4). A production serving stack needs real checkpoint/
 resume, so this module provides the full surface:
 
 * **model params** — orbax-backed, sharding-aware (arrays restore onto

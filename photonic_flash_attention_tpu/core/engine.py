@@ -2,22 +2,22 @@
 
 The rebirth of the reference's ``HybridFlashAttention`` orchestrator
 (reference core/hybrid_router.py:262-669). The reference owned one GPU
-kernel + one photonic kernel + a router; this engine owns the TPU kernel
-registry {fused, flash, flash_fp8, (paged_decode, ring added by higher
-layers)} and routes per call with *measured* latencies.
+kernel + one photonic kernel + a router; this engine owns the kernel
+registry {fused, flash, paged_decode, ring, ulysses} and routes per call
+with *measured* latencies.
 
 Faithfully kept mechanics:
 * warmup-then-exploit lifecycle — unmeasured kernels get measured before
   the router exploits (``_warmup_forward`` :543-597),
 * per-call perf feedback to the router (``_standard_forward`` :379-438),
 * failure → fallback to the baseline kernel (photonic→GPU :432-438
-  becomes flash/fp8→fused),
+  becomes flash→fused),
 * the stats surface: ``get_performance_stats()``, ``last_kernel_used``,
   ``last_latency_ms``, ``last_energy_mj`` (modules.py:189-218).
 
-Energy is reported from an explicit, documented model — measured kernel
-time × chip board power — replacing the reference's flat J/op fiction
-(hybrid_router.py:599-611).
+Energy is reported from an explicit, documented roofline model scaled to
+the card's board power (``platform.device_peaks``), replacing the
+reference's flat J/op fiction (hybrid_router.py:599-611).
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import platform
 from ..config import get_config
-from ..ops.flash import flash_attention
+from ..ops.flash import cudnn_eligible, flash_attention
 from ..ops.fused import fused_attention
 from ..ops.reference import DEFAULT_MASK_VALUE, attention_blockwise
 from ..utils.exceptions import ComputationError
@@ -43,12 +44,6 @@ from .autotuner import Autotuner, candidate_blocks
 from .router import AdaptiveRouter, KernelKind, WorkloadCharacteristics
 
 logger = get_logger("engine")
-
-# Board power model for energy estimates (documented, not measured):
-# TPU v5e ~170 W/chip board power. The reference used flat per-op Joule
-# constants (GPU 300W@50TOPS, photonic 10W@10TOPS, hybrid_router.py:599-611);
-# we integrate measured wall-time instead.
-CHIP_POWER_WATTS = 170.0
 
 
 def _analyze_mask(mask, b: int, skv: int):
@@ -94,7 +89,7 @@ def _analyze_mask(mask, b: int, skv: int):
 
 
 class AttentionEngine:
-    """Routes (q, k, v) attention calls across TPU kernel variants.
+    """Routes (q, k, v) attention calls across the kernel variants.
 
     Kernel selection happens at Python level per workload bucket (shapes
     are static under jit, so each bucket compiles each chosen variant
@@ -105,10 +100,7 @@ class AttentionEngine:
         self,
         router: Optional[AdaptiveRouter] = None,
         autotuner: Optional[Autotuner] = None,
-        enable_fp8: Optional[bool] = None,
-        enable_int8: Optional[bool] = None,
     ) -> None:
-        cfg = get_config()
         self.router = router or AdaptiveRouter()
         # Energy-aware arbitration (config.energy_weight > 0): the router
         # blends measured latency with this roofline-energy estimate.
@@ -120,15 +112,6 @@ class AttentionEngine:
         from .autotuner import get_autotuner
 
         self.autotuner = autotuner or get_autotuner()
-        # Quantized kernels are opt-in PER FAMILY (ADVICE r3: fp8 opt-in
-        # must not silently enable the ~1e-2-error int8 kernels): fp8
-        # variants under quant_mode "fp8", int8 variants under "int8".
-        self.enable_fp8 = (
-            enable_fp8 if enable_fp8 is not None else cfg.quant_mode == "fp8"
-        )
-        self.enable_int8 = (
-            enable_int8 if enable_int8 is not None else cfg.quant_mode == "int8"
-        )
         self._jit_cache: Dict[Tuple, Callable] = {}
         self._lock = threading.RLock()
         self._metrics = get_metrics()
@@ -159,7 +142,7 @@ class AttentionEngine:
 
         This completes the SURVEY phase-5 registry — one router owning
         {fused, flash, quantized flash variants, paged_decode, ring,
-        ulysses}, the TPU analogue of the reference orchestrator owning
+        ulysses}, the analogue of the reference orchestrator owning
         all its kernels (reference core/hybrid_router.py:262-669). The
         measured tables arbitrate the ring-vs-ulysses crossover
         (SURVEY §2.5: Ulysses when heads >= chips and the sequence
@@ -235,27 +218,6 @@ class AttentionEngine:
         self, w: Optional[WorkloadCharacteristics] = None
     ) -> Tuple[KernelKind, ...]:
         kinds = [KernelKind.FUSED, KernelKind.FLASH]
-        if w is not None and not w.is_decode and w.q_len == w.kv_len:
-            # Round-5 unrolled-KV kernels: mask-free square self-
-            # attention inside the measured VMEM envelope (the router
-            # additionally gates mask_kind).
-            from ..ops.flash_unrolled import unrolled_supported
-
-            if unrolled_supported(w.q_len, w.head_dim):
-                kinds.append(KernelKind.FLASH_UNROLLED)
-            if self.enable_int8 and unrolled_supported(
-                w.q_len, w.head_dim, int8_qk=True
-            ):
-                kinds.append(KernelKind.FLASH_UNROLLED_INT8QK)
-        if self.enable_fp8:
-            # fp8 family: per-tensor-scale QK variant (fast) + the
-            # per-128-row-block-scale variant (outlier-robust); the
-            # measured router picks per bucket.
-            kinds.append(KernelKind.FLASH_FP8)
-            kinds.append(KernelKind.FLASH_FP8QK)
-        if self.enable_int8:
-            kinds.append(KernelKind.FLASH_INT8QK)
-            kinds.append(KernelKind.FLASH_INT8FULL)
         if w is not None:
             if w.is_decode and w.kv_len >= 128:
                 kinds.append(KernelKind.PAGED_DECODE)
@@ -351,102 +313,6 @@ class AttentionEngine:
                     None,
                 )
 
-        elif kind in (
-            KernelKind.FLASH_UNROLLED,
-            KernelKind.FLASH_UNROLLED_INT8QK,
-        ):
-            from ..ops.flash_unrolled import flash_attention_unrolled
-
-            i8 = kind == KernelKind.FLASH_UNROLLED_INT8QK
-
-            if mask_kind == "key":
-
-                @jax.jit
-                def fn(q, k, v, kv_lens=None, k_bias=None):
-                    # Key padding as an in-kernel per-key bias (round 5):
-                    # a lens-only mask converts to the bias form (one
-                    # (B, Skv) fp32 stream — negligible next to K/V).
-                    skv_ = k.shape[1]
-                    if k_bias is None:
-                        keep = (
-                            jnp.arange(skv_, dtype=jnp.int32)[None]
-                            < kv_lens[:, None]
-                        )
-                        bias = jnp.where(keep, 0.0, DEFAULT_MASK_VALUE)
-                    else:
-                        bias = k_bias
-                    return (
-                        flash_attention_unrolled(
-                            q, k, v, causal=causal, int8_qk=i8,
-                            block_q=512, block_kv=512,
-                            k_bias=bias.astype(jnp.float32),
-                        ),
-                        None,
-                    )
-
-            else:
-
-                @jax.jit
-                def fn(q, k, v, mask=None):
-                    # Fixed 512x512 blocks: the kernel's measured
-                    # envelope; autotuned grid-kernel block hints do not
-                    # apply here.
-                    return (
-                        flash_attention_unrolled(
-                            q, k, v, causal=causal, int8_qk=i8,
-                            block_q=512, block_kv=512,
-                        ),
-                        None,
-                    )
-
-        elif kind == KernelKind.FLASH_FP8:
-            from ..ops.flash_fp8 import flash_attention_fp8
-
-            @jax.jit
-            def fn(q, k, v, mask=None):
-                return (
-                    flash_attention_fp8(
-                        q, k, v, causal=causal, block_q=block_q, block_kv=block_kv
-                    ),
-                    None,
-                )
-
-        elif kind == KernelKind.FLASH_INT8QK:
-            from ..ops.flash_fp8 import flash_attention_int8qk
-
-            @jax.jit
-            def fn(q, k, v, mask=None):
-                return (
-                    flash_attention_int8qk(
-                        q, k, v, causal=causal, block_q=block_q, block_kv=block_kv
-                    ),
-                    None,
-                )
-
-        elif kind == KernelKind.FLASH_INT8FULL:
-            from ..ops.flash_fp8 import flash_attention_int8full
-
-            @jax.jit
-            def fn(q, k, v, mask=None):
-                return (
-                    flash_attention_int8full(
-                        q, k, v, causal=causal, block_q=block_q, block_kv=block_kv
-                    ),
-                    None,
-                )
-
-        elif kind == KernelKind.FLASH_FP8QK:
-            from ..ops.flash_fp8 import flash_attention_fp8qk
-
-            @jax.jit
-            def fn(q, k, v, mask=None):
-                return (
-                    flash_attention_fp8qk(
-                        q, k, v, causal=causal, block_q=block_q, block_kv=block_kv
-                    ),
-                    None,
-                )
-
         elif kind == KernelKind.ULYSSES:
             from ..parallel.ulysses import make_ulysses_attention
 
@@ -483,21 +349,16 @@ class AttentionEngine:
                 return ring_fn(q, k, v, kv_lens=kv_lens, k_bias=k_bias), None
 
         elif kind == KernelKind.PAGED_DECODE:
-            from ..ops.paged import paged_attention_hf as paged_attention
+            from ..ops.paged import paged_attention
 
             @jax.jit
             def fn(q, k, v, kv_lens=None, k_bias=None):
-                # Decode (Sq == 1) against contiguous KV: repack into the
-                # serving pool's 128-token-minor page layout with an
-                # identity page table and run the paged decode kernel —
-                # the round-4 head-folded bandwidth-first variant
-                # (ops/paged.py paged_attention_hf, 628-806 GB/s HBM read
-                # vs the round-3 per-head kernel's 212 at the same
-                # geometry) — reachable through the router (SURVEY
-                # phase-5 registry).
+                # Decode (Sq == 1) against contiguous KV: view it as the
+                # serving pool's token-major pages with an identity page
+                # table and run the paged decode kernel.
                 b, _, hq, d = q.shape
                 skv, hkv = k.shape[1], k.shape[2]
-                page = 128
+                page = 64
                 pad = (-skv) % page
                 kp = jnp.pad(k, ((0, 0), (0, pad), (0, 0), (0, 0)))
                 vp = jnp.pad(v, ((0, 0), (0, pad), (0, 0), (0, 0)))
@@ -506,8 +367,8 @@ class AttentionEngine:
                 def to_pages(x):
                     return (
                         x.reshape(b, pps, page, hkv, d)
-                        .transpose(3, 0, 1, 4, 2)
-                        .reshape(hkv, b * pps, d, page)
+                        .transpose(3, 0, 1, 2, 4)
+                        .reshape(hkv, b * pps, page, d)
                     )
 
                 page_indices = jnp.arange(b * pps, dtype=jnp.int32).reshape(
@@ -532,17 +393,19 @@ class AttentionEngine:
 
     # -- block-size selection --------------------------------------------
 
-    def _blocks_for(self, w: WorkloadCharacteristics) -> Tuple[int, int]:
-        cfg = get_config()
-        if jax.default_backend() != "tpu":
-            return 128, 128  # interpreter mode: smallest legal tiles
+    def _blocks_for(
+        self, w: WorkloadCharacteristics
+    ) -> Tuple[Optional[int], Optional[int]]:
+        """Tuned tiles for this bucket, else None: ``flash_attention``
+        then chooses (cuDNN where it applies, the kernel's defaults
+        otherwise)."""
         key = Autotuner.profile_key(
             w.q_len, w.kv_len, w.head_dim, w.batch_size, w.num_heads
         )
         cached = self.autotuner.lookup(key)
         if cached is not None:
             return cached.block_q, cached.block_kv
-        return cfg.block_q, cfg.block_kv
+        return None, None
 
     def autotune(
         self, q: jax.Array, k: jax.Array, v: jax.Array, causal: bool = False
@@ -555,7 +418,8 @@ class AttentionEngine:
         def make(bq: int, bkv: int) -> Callable[[], jax.Array]:
             fn = jax.jit(
                 functools.partial(
-                    flash_attention, causal=causal, block_q=bq, block_kv=bkv
+                    flash_attention, causal=causal, block_q=bq, block_kv=bkv,
+                    implementation="pallas",
                 )
             )
 
@@ -636,10 +500,7 @@ class AttentionEngine:
             fn = self._get_jitted(
                 kind, causal, need_weights, mask_kind, block_q, block_kv
             )
-            if (
-                kind in (KernelKind.FLASH, KernelKind.FLASH_UNROLLED)
-                and mask_kind == "key"
-            ):
+            if kind == KernelKind.FLASH and mask_kind == "key":
                 return fn(q_in, k, v, kv_lens=kv_lens, k_bias=k_bias)
             if kind == KernelKind.PAGED_DECODE:
                 return fn(q_in, k, v, kv_lens=kv_lens)
@@ -686,7 +547,14 @@ class AttentionEngine:
                 # measure inline once (the warmup-then-exploit lifecycle,
                 # reference _warmup_forward :543-597).
                 try:
-                    ms = self._warmup_measure(kind, w, run, q, block_q, block_kv)
+                    # Tiles shape only the Pallas kernel: a call that runs
+                    # on cuDNN has none to tune.
+                    ms = self._warmup_measure(
+                        kind, w, run, q, block_q, block_kv,
+                        tune_tiles=not cudnn_eligible(
+                            q, k, causal=causal, features=False
+                        ),
+                    )
                     if ms is not None:
                         self.router.record_measurement(kind, w, ms)
                         # Block tuning may have recorded a better profile:
@@ -747,12 +615,13 @@ class AttentionEngine:
         ).start()
 
     def _warmup_measure(
-        self, kind: KernelKind, w, run, q, block_q: int, block_kv: int
+        self, kind: KernelKind, w, run, q, block_q: int, block_kv: int,
+        tune_tiles: bool = True,
     ):
         """Honest warmup measurement; self-driving block tuning for flash.
 
         When the bucket is a plain flash workload with no stored block
-        profile, up to 3 VMEM-feasible block candidates are measured
+        profile, up to 3 feasible block candidates are measured
         (scan-chained fits) and the winner persisted — production
         traffic tunes itself on first contact instead of running on
         config defaults forever (VERDICT r2 missing #6; the in-band
@@ -763,6 +632,7 @@ class AttentionEngine:
         cfg = get_config()
         if (
             kind == KernelKind.FLASH
+            and tune_tiles
             and cfg.auto_block_tuning
             and w.mask_kind == "none"
         ):
@@ -772,7 +642,7 @@ class AttentionEngine:
             if self.autotuner.lookup(key) is None:
                 cands = [(block_q, block_kv)]
                 for c in reversed(candidate_blocks(w.q_len, w.kv_len, w.head_dim)):
-                    if c not in cands and c[0] >= 256 and c[1] >= 256:
+                    if c not in cands and c[0] >= 64 and c[1] >= 64:
                         cands.append(c)
                 best = None
                 for bq, bkv in cands[:3]:
@@ -809,28 +679,6 @@ class AttentionEngine:
         self._metrics.record(f"attention.{kind.value}.latency_ms", latency_ms)
         self._metrics.record(f"attention.{kind.value}.energy_mj", self.last_energy_mj)
 
-    # Kernel -> effective matmul dtype for the energy model. "int8qk"/
-    # "fp8qk" are the QK-only blends (score matmul quantized, P.V bf16 —
-    # e_flop is the 50/50 mix, roofline.PJ_PER_FLOP); "int8" is the
-    # fully-quantized kernel (ADVICE r4 #1: the old dead "flash_int8"
-    # key left FLASH_INT8FULL on bf16 constants).
-    _ENERGY_DTYPE = {
-        "flash_int8qk": "int8qk",
-        "flash_int8full": "int8",
-        "flash_fp8": "fp8",
-        "flash_fp8qk": "fp8qk",
-    }
-
-    # Kernel -> per-operand HBM byte widths (q, k, v, o) for the energy
-    # model (ADVICE r4 #2: int8qk keeps V and O in bf16 — a flat
-    # 1 byte/element under-counted half the streams ~2x).
-    _ENERGY_OPERAND_BYTES = {
-        "flash_int8qk": (1, 1, 2, 2),
-        "flash_fp8qk": (1, 1, 2, 2),
-        "flash_fp8": (1, 1, 1, 2),
-        "flash_int8full": (1, 1, 1, 2),
-    }
-
     def _estimate_energy_mj(
         self,
         kind: KernelKind,
@@ -839,16 +687,15 @@ class AttentionEngine:
     ) -> float:
         """Roofline-derived energy (flops*e_flop + bytes*e_byte + static*t).
 
-        Replaces the round-3 ``latency x 170 W`` stand-in (VERDICT r3
-        weak #6): a bytes+flops model lets lower-traffic kernels (int8
-        KV decode, quantized score matmuls) rank better than an equally
-        fast bf16 kernel — the trade the reference's router made with
-        its photonic-vs-GPU Joule constants (hybrid_router.py:599-611).
-        Falls back to the flat board-power integral when no workload or
-        device model is available.
+        A bytes+flops model lets a lower-traffic kernel (int8 KV decode)
+        rank better than an equally fast one — the trade the reference's
+        router made with its photonic-vs-GPU Joule constants
+        (hybrid_router.py:599-611). Falls back to the board-power
+        integral when no workload model is available.
         """
+        board_w = platform.device_peaks().power_w
         if w is None:
-            return latency_ms * CHIP_POWER_WATTS
+            return latency_ms * board_w
         try:
             from ..hardware.roofline import (
                 attention_decode_cost,
@@ -856,7 +703,6 @@ class AttentionEngine:
                 kernel_energy_mj,
             )
 
-            dtype = self._ENERGY_DTYPE.get(kind.value, "bf16")
             if w.is_decode:
                 cost = attention_decode_cost(
                     w.batch_size, w.kv_len, w.num_heads,
@@ -866,27 +712,16 @@ class AttentionEngine:
                 cost = attention_prefill_cost(
                     w.batch_size, w.q_len, w.kv_len, w.num_heads,
                     w.head_dim, causal=w.causal,
-                    dtype=dtype if dtype in ("bf16", "int8", "fp8") else "bf16",
                 )
-                ob = self._ENERGY_OPERAND_BYTES.get(kind.value)
-                if ob is not None:
-                    # Mixed-precision HBM traffic (ADVICE r4 #2), with
-                    # the real KV head count for the k/v streams.
-                    qb, kb, vb, o_b = ob
-                    hkv = w.num_kv_heads or w.num_heads
-                    cost.hbm_bytes = w.batch_size * w.head_dim * (
-                        w.num_heads * w.q_len * (qb + o_b)
-                        + hkv * w.kv_len * (kb + vb)
-                    )
             if kind == KernelKind.FUSED:
                 # The fused path materializes (B, H, Sq, Skv) scores in
                 # HBM (twice: write + read through the softmax).
                 cost.hbm_bytes += (
                     4.0 * w.batch_size * w.num_heads * w.q_len * w.kv_len * 2
                 )
-            return kernel_energy_mj(cost, latency_ms, dtype=dtype)
+            return kernel_energy_mj(cost, latency_ms)
         except Exception:  # noqa: BLE001 - stats must never break compute
-            return latency_ms * CHIP_POWER_WATTS
+            return latency_ms * board_w
 
     def get_performance_stats(self) -> Dict:
         """Aggregate stats (reference get_performance_stats :619)."""

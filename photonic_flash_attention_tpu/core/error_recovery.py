@@ -4,14 +4,14 @@ The rebirth of the reference's ``ErrorRecoveryManager`` (reference
 core/error_recovery.py:22-597): the same machinery — substring/type-matched
 recovery policies, strategy executors, per-operation CLOSED/OPEN/HALF_OPEN
 circuit breakers, ``with_error_recovery``/``with_circuit_breaker``
-decorators, global singleton — with the strategies re-aimed at real TPU
-failure modes:
+decorators, global singleton — with the strategies re-aimed at real
+accelerator failure modes:
 
 * RETRY w/ exponential backoff — transient runtime/RPC errors,
 * FALLBACK — kernel failure -> fused XLA path (photonic->GPU reborn),
 * DEGRADE — quantized path accuracy failure -> raise precision
   (INT8/FP8 -> BF16; the reference degraded optical power instead),
-* RECOMPILE — stale compile cache / Mosaic error -> clear jit caches,
+* RECOMPILE — stale compile cache / kernel compiler error -> clear jit caches,
 * ABORT — validation errors (bad inputs don't deserve retries).
 """
 
@@ -73,7 +73,7 @@ DEFAULT_POLICIES: List[RecoveryPolicy] = [
         "recompile_on_compiler_error",
         RecoveryStrategy.RECOMPILE,
         error_types=(CompilationError,),
-        message_substrings=("mosaic", "xla compilation", "hlo"),
+        message_substrings=("triton", "xla compilation", "hlo"),
         max_attempts=2,
     ),
     RecoveryPolicy(

@@ -1,20 +1,18 @@
-"""HBM-resident paged KV cache with host-side page tables.
+"""Device-resident paged KV cache with host-side page tables.
 
 The rebirth of the reference's ``UnifiedMemoryManager`` (reference
 core/memory_manager.py:17-495): its per-(device, shape) free-list tensor
-pool becomes a page pool over two big HBM arrays (K pages, V pages), its
+pool becomes a page pool over two big device arrays (K pages, V pages), its
 ``allocate``/``deallocate``/``get_memory_stats``/``temporary_allocation``
 surface is preserved as ``allocate_sequence``/``free_sequence``/
 ``get_memory_stats``/``temporary_sequence``, and its OOM ladder
 (limit check → GC → emergency cleanup, memory_manager.py:81-161) becomes
 free-page accounting with an explicit eviction hook.
 
-Page layout: **token-minor** ``(num_kv_heads, num_pages, head_dim,
-page_size)`` — tokens run over the minor (lane) dimension so a per-page
-DMA slice is 128-aligned when ``page_size % 128 == 0``, which is what the
-Pallas decode kernel requires on hardware (see ops/paged.py). Optional
-INT8 payload with per-token fp32 scales
-``(num_kv_heads, num_pages, page_size)``.
+Page layout: **token-major** ``(num_kv_heads, num_pages, page_size,
+head_dim)`` — one token's head vector is contiguous, the row the paged
+decode kernel gathers (see ops/paged.py). Optional INT8 payload with
+per-token fp32 scales ``(num_kv_heads, num_pages, page_size)``.
 
 Device arrays are functionally updated; the cache object re-binds them
 (donate-friendly under jit in the serving loop).
@@ -73,7 +71,7 @@ class PagedKVCache:
         self.quantized = dtype == jnp.int8
         self.max_pages_per_seq = max_pages_per_seq
 
-        shape = (num_kv_heads, num_pages, head_dim, page_size)
+        shape = (num_kv_heads, num_pages, page_size, head_dim)
         self.k_pages = jnp.zeros(shape, dtype)
         self.v_pages = jnp.zeros(shape, dtype)
         if self.quantized:
@@ -175,18 +173,18 @@ class PagedKVCache:
 
         kq, ks = self._maybe_quantize(k)
         vq, vs = self._maybe_quantize(v)
-        # Scatter token runs into their pages (token-minor: tokens on the
-        # last axis, head_dim on the second-to-last).
+        # Scatter token runs into their pages (token-major: tokens on the
+        # second-to-last axis, head_dim last).
         pos = 0
         while pos < s_new:
             tok = start + pos
             page_idx = info.page_ids[tok // self.page_size]
             off = tok % self.page_size
             run = min(self.page_size - off, s_new - pos)
-            ksl = kq[pos : pos + run].transpose(1, 2, 0)  # (H, D, run)
-            vsl = vq[pos : pos + run].transpose(1, 2, 0)
-            self.k_pages = self.k_pages.at[:, page_idx, :, off : off + run].set(ksl)
-            self.v_pages = self.v_pages.at[:, page_idx, :, off : off + run].set(vsl)
+            ksl = kq[pos : pos + run].transpose(1, 0, 2)  # (H, run, D)
+            vsl = vq[pos : pos + run].transpose(1, 0, 2)
+            self.k_pages = self.k_pages.at[:, page_idx, off : off + run].set(ksl)
+            self.v_pages = self.v_pages.at[:, page_idx, off : off + run].set(vsl)
             if self.quantized:
                 self.k_scales = self.k_scales.at[:, page_idx, off : off + run].set(
                     ks[pos : pos + run].T
@@ -242,13 +240,13 @@ class PagedKVCache:
             n = min(self.page_size, info.length - i * self.page_size)
             if n <= 0:
                 break
-            kp = self.k_pages[:, page_idx, :, :n].astype(jnp.float32)  # (H, D, n)
-            vp = self.v_pages[:, page_idx, :, :n].astype(jnp.float32)
+            kp = self.k_pages[:, page_idx, :n].astype(jnp.float32)  # (H, n, D)
+            vp = self.v_pages[:, page_idx, :n].astype(jnp.float32)
             if self.quantized:
-                kp = kp * self.k_scales[:, page_idx, None, :n]
-                vp = vp * self.v_scales[:, page_idx, None, :n]
-            ks.append(kp.transpose(2, 0, 1))
-            vs.append(vp.transpose(2, 0, 1))
+                kp = kp * self.k_scales[:, page_idx, :n, None]
+                vp = vp * self.v_scales[:, page_idx, :n, None]
+            ks.append(kp.transpose(1, 0, 2))
+            vs.append(vp.transpose(1, 0, 2))
         return jnp.concatenate(ks, 0), jnp.concatenate(vs, 0)
 
     # -- stats ------------------------------------------------------------

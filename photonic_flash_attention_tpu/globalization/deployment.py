@@ -2,8 +2,7 @@
 
 Rebirth of reference globalization/deployment.py:17-488 (region catalog
 with capabilities+compliance, optimal-region scoring, deployment records,
-failover trigger) — regions are real TPU regions with their available
-generations.
+failover trigger) — regions with the GPU types they offer.
 """
 
 from __future__ import annotations
@@ -20,26 +19,26 @@ from .compliance import Regime
 class Region:
     name: str
     location: str
-    tpu_generations: tuple
+    accelerators: tuple
     regimes: tuple  # compliance regimes satisfiable in-region
     latency_ms_estimate: Dict[str, float]  # to major user geos
 
 
 REGION_CATALOG: Dict[str, Region] = {
     "us-central1": Region(
-        "us-central1", "US", ("v5e", "v5p"), (Regime.CCPA,),
+        "us-central1", "US", ("h100", "h200"), (Regime.CCPA,),
         {"us": 20.0, "eu": 110.0, "apac": 150.0},
     ),
     "us-east5": Region(
-        "us-east5", "US", ("v5p", "v6e"), (Regime.CCPA,),
+        "us-east5", "US", ("h100",), (Regime.CCPA,),
         {"us": 25.0, "eu": 90.0, "apac": 180.0},
     ),
     "europe-west4": Region(
-        "europe-west4", "EU", ("v5e", "v5p"), (Regime.GDPR,),
+        "europe-west4", "EU", ("h100", "h200"), (Regime.GDPR,),
         {"us": 100.0, "eu": 15.0, "apac": 200.0},
     ),
     "asia-northeast1": Region(
-        "asia-northeast1", "APAC", ("v5e",), (Regime.PDPA,),
+        "asia-northeast1", "APAC", ("h100",), (Regime.PDPA,),
         {"us": 140.0, "eu": 210.0, "apac": 30.0},
     ),
 }
@@ -72,7 +71,7 @@ class RegionManager:
         if required_regime is not None and required_regime not in region.regimes:
             return float("-inf")
         score = 100.0 - region.latency_ms_estimate.get(user_geo, 250.0)
-        if preferred_generation and preferred_generation in region.tpu_generations:
+        if preferred_generation and preferred_generation in region.accelerators:
             score += 25.0
         rec = self._deployments.get(region.name)
         if rec is not None and not rec.healthy:

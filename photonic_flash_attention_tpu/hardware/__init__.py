@@ -1,40 +1,30 @@
-"""Hardware: device detection, roofline cost model, design-space simulators."""
+"""Hardware: device detection and the roofline cost model."""
 
 from .detection import (
-    TPUCapabilities,
-    TPUDevice,
-    detect_tpu_hardware,
-    get_best_tpu_device,
+    Device,
+    detect_devices,
+    get_best_device,
     get_device_info,
 )
 from .roofline import (
     KernelCost,
     attention_decode_cost,
     attention_prefill_cost,
+    kernel_energy_mj,
     matmul_cost,
     ring_attention_step_cost,
     roofline_fraction,
 )
-from .simulator import (
-    CollectiveCost,
-    KernelPipelineSimulator,
-    PipelinePrediction,
-    TopologySimulator,
-)
 
 __all__ = [
-    "CollectiveCost",
+    "Device",
     "KernelCost",
-    "KernelPipelineSimulator",
-    "PipelinePrediction",
-    "TPUCapabilities",
-    "TPUDevice",
-    "TopologySimulator",
     "attention_decode_cost",
     "attention_prefill_cost",
-    "detect_tpu_hardware",
-    "get_best_tpu_device",
+    "detect_devices",
+    "get_best_device",
     "get_device_info",
+    "kernel_energy_mj",
     "matmul_cost",
     "ring_attention_step_cost",
     "roofline_fraction",

@@ -1,130 +1,74 @@
-"""TPU hardware detection.
+"""Device detection.
 
 The rebirth of reference photonic/hardware/detection.py:10-258: probe the
 platform, enumerate devices with their capabilities, keep a module
 singleton with ``detect_*``/``get_best_*``/``get_device_info`` surface.
 The reference probed lspci/device files for photonic accelerators and
 always fell back to a simulator; here the probe is ``jax.devices()`` and
-the "simulation mode" analogue is the CPU backend (interpret-mode
-kernels), selected the same way — an environment switch.
-
-Per-generation capability table (public figures) powers the roofline
-model in :mod:`.roofline`.
+each device's peak rates come from the one table in
+:mod:`photonic_flash_attention_tpu.platform` (an unknown accelerator
+raises there). The CPU row exists only for the test suite.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 import threading
 from typing import Dict, List, Optional
 
 import jax
 
+from .. import platform
+from ..platform import DevicePeaks
 from ..utils.logging import get_logger
 
 logger = get_logger("hardware")
 
 
-@dataclasses.dataclass(frozen=True)
-class TPUCapabilities:
-    """Peak rates per chip (public spec sheet numbers)."""
-
-    generation: str
-    bf16_tflops: float
-    int8_tops: float
-    hbm_gb: float
-    hbm_gbps: float  # memory bandwidth
-    vmem_mb: float
-    ici_gbps: float  # per-link interconnect bandwidth
-
-
-# Public per-chip numbers.
-_CAPABILITY_TABLE: Dict[str, TPUCapabilities] = {
-    "v4": TPUCapabilities("v4", 275.0, 275.0, 32.0, 1228.0, 128.0, 50.0),
-    "v5e": TPUCapabilities("v5e", 197.0, 394.0, 16.0, 819.0, 128.0, 200.0),
-    "v5p": TPUCapabilities("v5p", 459.0, 918.0, 95.0, 2765.0, 128.0, 600.0),
-    "v6e": TPUCapabilities("v6e", 918.0, 1836.0, 32.0, 1640.0, 128.0, 400.0),
-    # conservative fallback for unknown chips
-    "unknown": TPUCapabilities("unknown", 100.0, 200.0, 16.0, 800.0, 64.0, 100.0),
-    # CPU "simulation mode" (the PHOTONIC_SIMULATION analogue)
-    "cpu": TPUCapabilities("cpu", 0.2, 0.4, 8.0, 50.0, 0.03, 0.0),
-}
-
-
 @dataclasses.dataclass
-class TPUDevice:
+class Device:
     """Detected device (reference PhotonicDevice dataclass :10-21)."""
 
     device_id: int
     kind: str
     platform: str
-    capabilities: TPUCapabilities
+    peaks: DevicePeaks
     process_index: int = 0
-    coords: Optional[tuple] = None
 
     @property
     def is_simulated(self) -> bool:
-        return self.platform != "tpu"
+        """True for the CPU test backend (interpreted kernels)."""
+        return self.platform == "cpu"
 
 
-def _classify(device_kind: str) -> str:
-    dk = device_kind.lower()
-    for gen in ("v6e", "v5p", "v5e", "v4"):
-        if gen in dk.replace(" ", "").replace("lite", "e"):
-            return gen
-    if "v5" in dk and ("lite" in dk or "e" in dk):
-        return "v5e"
-    if "v5" in dk:
-        return "v5p"
-    return "unknown"
-
-
-class TPUHardwareDetector:
+class HardwareDetector:
     """Singleton detector (reference PhotonicHardwareDetector)."""
 
     def __init__(self) -> None:
-        self._devices: Optional[List[TPUDevice]] = None
+        self._devices: Optional[List[Device]] = None
         self._lock = threading.Lock()
 
-    def detect(self, refresh: bool = False) -> List[TPUDevice]:
+    def detect(self, refresh: bool = False) -> List[Device]:
         with self._lock:
             if self._devices is not None and not refresh:
                 return self._devices
-            out: List[TPUDevice] = []
-            try:
-                devs = jax.devices()
-            except RuntimeError as e:
-                logger.warning("no devices detected: %s", e)
-                self._devices = []
-                return []
-            for d in devs:
-                platform = d.platform
-                kind = getattr(d, "device_kind", platform)
-                if platform == "tpu":
-                    caps = _CAPABILITY_TABLE.get(
-                        _classify(kind), _CAPABILITY_TABLE["unknown"]
-                    )
-                else:
-                    caps = _CAPABILITY_TABLE["cpu"]
-                out.append(
-                    TPUDevice(
-                        device_id=d.id,
-                        kind=kind,
-                        platform=platform,
-                        capabilities=caps,
-                        process_index=d.process_index,
-                        coords=getattr(d, "coords", None),
-                    )
+            self._devices = [
+                Device(
+                    device_id=d.id,
+                    kind=platform.device_kind(d),
+                    platform=d.platform,
+                    peaks=platform.device_peaks(d),
+                    process_index=d.process_index,
                 )
-            self._devices = out
-            return out
+                for d in jax.devices()
+            ]
+            return self._devices
 
-    def best(self) -> Optional[TPUDevice]:
+    def best(self) -> Optional[Device]:
         devices = self.detect()
         if not devices:
             return None
-        return max(devices, key=lambda d: d.capabilities.bf16_tflops)
+        return max(devices, key=lambda d: d.peaks.bf16_flops)
 
     def info(self) -> Dict:
         devices = self.detect()
@@ -136,34 +80,35 @@ class TPUHardwareDetector:
                     "id": d.device_id,
                     "kind": d.kind,
                     "platform": d.platform,
-                    "generation": d.capabilities.generation,
-                    "bf16_tflops": d.capabilities.bf16_tflops,
-                    "hbm_gb": d.capabilities.hbm_gb,
+                    "name": d.peaks.name,
+                    "bf16_tflops": d.peaks.bf16_flops / 1e12,
+                    "hbm_gb": d.peaks.hbm_bytes / 1e9,
+                    "peaks_source": d.peaks.source,
                 }
                 for d in devices
             ],
         }
 
 
-_detector: Optional[TPUHardwareDetector] = None
+_detector: Optional[HardwareDetector] = None
 _det_lock = threading.Lock()
 
 
-def _get_detector() -> TPUHardwareDetector:
+def _get_detector() -> HardwareDetector:
     global _detector
     if _detector is None:
         with _det_lock:
             if _detector is None:
-                _detector = TPUHardwareDetector()
+                _detector = HardwareDetector()
     return _detector
 
 
-def detect_tpu_hardware(refresh: bool = False) -> List[TPUDevice]:
+def detect_devices(refresh: bool = False) -> List[Device]:
     """Reference detect_photonic_hardware :212."""
     return _get_detector().detect(refresh)
 
 
-def get_best_tpu_device() -> Optional[TPUDevice]:
+def get_best_device() -> Optional[Device]:
     """Reference get_best_photonic_device :229."""
     return _get_detector().best()
 

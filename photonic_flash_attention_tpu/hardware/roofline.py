@@ -2,10 +2,11 @@
 
 The rebirth of the reference's device-physics sandbox (reference
 photonic/simulation/circuit.py:25-665 simulated S-matrices and frequency
-responses of a hardware it didn't have) as the simulator a TPU engine
-actually needs: given a workload and a chip generation, predict FLOPs,
-bytes moved, compute-bound vs memory-bound, and the speed-of-light
-latency. Three consumers:
+responses of a hardware it didn't have) as the model an attention engine
+actually needs: given a workload and a device's published peaks
+(:mod:`photonic_flash_attention_tpu.platform`), predict FLOPs, bytes
+moved, compute-bound vs memory-bound, and the speed-of-light latency.
+Three consumers:
 
 * the router — analytic priors before measurements exist,
 * the autotuner — sanity bounds on measured numbers,
@@ -17,7 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
-from .detection import TPUCapabilities, get_best_tpu_device
+from .. import platform
+from ..platform import DevicePeaks
 
 _DTYPE_BYTES = {"bf16": 2, "fp16": 2, "f32": 4, "fp8": 1, "int8": 1}
 
@@ -53,13 +55,16 @@ class KernelCost:
         }
 
 
-def _caps(caps: Optional[TPUCapabilities]) -> TPUCapabilities:
-    if caps is not None:
-        return caps
-    dev = get_best_tpu_device()
-    if dev is None:
-        raise RuntimeError("no device detected for roofline model")
-    return dev.capabilities
+def _caps(caps: Optional[DevicePeaks]) -> DevicePeaks:
+    return caps if caps is not None else platform.device_peaks()
+
+
+def _peak_flops(c: DevicePeaks, dtype: str) -> float:
+    if dtype in ("int8", "fp8"):
+        return c.int8_ops
+    if dtype == "f32":
+        return c.tf32_flops
+    return c.bf16_flops
 
 
 def attention_prefill_cost(
@@ -71,7 +76,7 @@ def attention_prefill_cost(
     *,
     causal: bool = False,
     dtype: str = "bf16",
-    caps: Optional[TPUCapabilities] = None,
+    caps: Optional[DevicePeaks] = None,
 ) -> KernelCost:
     """Flash-attention forward cost (QK^T + PV, streaming KV from HBM)."""
     c = _caps(caps)
@@ -80,11 +85,8 @@ def attention_prefill_cost(
     b = _DTYPE_BYTES[dtype]
     # q read + o write once; k, v read once (flash streams tiles).
     hbm = batch * num_heads * head_dim * b * (2 * q_len + 2 * kv_len)
-    peak_flops = (c.int8_tops if dtype in ("int8", "fp8") else c.bf16_tflops) * 1e12
-    # head_dim < 128 underfills the MXU contraction lanes.
-    mxu_eff = min(1.0, head_dim / 128.0)
-    t_comp = flops / (peak_flops * mxu_eff) * 1e6
-    t_mem = hbm / (c.hbm_gbps * 1e9) * 1e6
+    t_comp = flops / _peak_flops(c, dtype) * 1e6
+    t_mem = hbm / c.hbm_bytes_per_s * 1e6
     return KernelCost(flops, hbm, t_comp, t_mem)
 
 
@@ -96,7 +98,7 @@ def attention_decode_cost(
     head_dim: int,
     *,
     kv_dtype: str = "bf16",
-    caps: Optional[TPUCapabilities] = None,
+    caps: Optional[DevicePeaks] = None,
 ) -> KernelCost:
     """Paged decode cost: one query token vs the whole KV cache.
 
@@ -109,9 +111,8 @@ def attention_decode_cost(
     hbm = 2.0 * batch * num_kv_heads * kv_len * head_dim * b  # K + V read
     if kv_dtype == "int8":
         hbm += 2.0 * batch * num_kv_heads * kv_len * 4  # per-token scales
-    peak_flops = c.bf16_tflops * 1e12
-    t_comp = flops / (peak_flops * min(1.0, head_dim / 128.0)) * 1e6
-    t_mem = hbm / (c.hbm_gbps * 1e9) * 1e6
+    t_comp = flops / c.bf16_flops * 1e6
+    t_mem = hbm / c.hbm_bytes_per_s * 1e6
     return KernelCost(flops, hbm, t_comp, t_mem)
 
 
@@ -121,15 +122,14 @@ def matmul_cost(
     k: int,
     *,
     dtype: str = "bf16",
-    caps: Optional[TPUCapabilities] = None,
+    caps: Optional[DevicePeaks] = None,
 ) -> KernelCost:
     c = _caps(caps)
     flops = 2.0 * m * n * k
     b = _DTYPE_BYTES[dtype]
     hbm = (m * k + k * n + m * n) * b
-    peak = (c.int8_tops if dtype in ("int8", "fp8") else c.bf16_tflops) * 1e12
     return KernelCost(
-        flops, hbm, flops / peak * 1e6, hbm / (c.hbm_gbps * 1e9) * 1e6
+        flops, hbm, flops / _peak_flops(c, dtype) * 1e6, hbm / c.hbm_bytes_per_s * 1e6
     )
 
 
@@ -141,12 +141,13 @@ def ring_attention_step_cost(
     n_devices: int,
     *,
     dtype: str = "bf16",
-    caps: Optional[TPUCapabilities] = None,
+    caps: Optional[DevicePeaks] = None,
 ) -> Dict:
-    """Per-step compute vs ICI transfer; overlap efficiency estimate.
+    """Per-step compute vs the KV shard's transfer to the next card.
 
-    Ring attention hides communication when t_compute >= t_ici (guide
-    §16); returns both plus the predicted overlap ratio.
+    Ring attention hides communication when t_compute >= t_link (each
+    step sends one K/V shard one way over the card-to-card link);
+    returns both plus the predicted overlap ratio.
     """
     c = _caps(caps)
     comp = attention_prefill_cost(
@@ -154,13 +155,13 @@ def ring_attention_step_cost(
     )
     b = _DTYPE_BYTES[dtype]
     kv_bytes = 2.0 * batch * num_heads * local_seq * head_dim * b
-    t_ici_us = kv_bytes / (max(c.ici_gbps, 1e-3) * 1e9) * 1e6
-    overlap = min(1.0, comp.t_roofline_us / max(t_ici_us, 1e-9))
+    t_link_us = kv_bytes / max(c.link_bytes_per_s, 1.0) * 1e6
+    overlap = min(1.0, comp.t_roofline_us / max(t_link_us, 1e-9))
     return {
         "t_compute_us": comp.t_roofline_us,
-        "t_ici_us": t_ici_us,
+        "t_link_us": t_link_us,
         "overlap_efficiency": overlap,
-        "comm_hidden": comp.t_roofline_us >= t_ici_us,
+        "comm_hidden": comp.t_roofline_us >= t_link_us,
         "steps": n_devices,
     }
 
@@ -170,142 +171,42 @@ def roofline_fraction(measured_us: float, cost: KernelCost) -> float:
     return cost.t_roofline_us / max(measured_us, 1e-9)
 
 
-# -- composite (measured-rate) roofline -----------------------------------
-
-#: Default measured device rates on the v5e this repo benches on
-#: (round 5, clean linear-fit methodology — see bench.py docstring and
-#: ops/device_probes.py). Overridden per-run by bench.py with the rates
-#: it just measured.
-V5E_MEASURED_RATES = {
-    "hbm_read_Bps": 750e9,  # ops/hbm_bw.py, 4 MB chunks, sustained
-    # ASYMPTOTIC softmax-stream rate (1/b of the linear per-tile model
-    # t = a + b*elems, ops/device_probes.measure_softmax_linear). At
-    # finite tile sizes the effective rate is lower (a ~ 170 ns fixed
-    # per block update): 273 G at 64K-elem tiles, 521 G at 196K.
-    "vpu_softmax_elems_per_s": 900e9,
-    "vpu_softmax_fixed_s_per_tile": 170e-9,
-    "vpu_exp_elems_per_s": 1.5e12,  # ops/device_probes.measure_exp_rate
-}
-
-
-def attention_composite_ceiling(
-    batch: int,
-    q_len: int,
-    kv_len: int,
-    num_heads: int,
-    head_dim: int,
-    *,
-    causal: bool = False,
-    score_dtype: str = "bf16",
-    pv_dtype: str = "bf16",
-    io_dtype: str = "bf16",
-    num_kv_heads: Optional[int] = None,
-    rates: Optional[Dict] = None,
-    caps: Optional[TPUCapabilities] = None,
-) -> Dict:
-    """Per-geometry speed-of-light for a flash-attention forward,
-    combining the three units the kernel exercises (VERDICT r4 #3):
-
-    * **MXU**: QK^T at the score dtype's rate + P.V at the PV dtype's
-      rate, derated by MXU lane underfill below head_dim 128,
-    * **VPU**: one online-softmax stream pass per score element at the
-      measured ASYMPTOTIC stream rate (~900 Gelem/s on v5e;
-      ops/device_probes.measure_softmax_linear),
-    * **HBM**: q/k/v read + o write at the measured read bandwidth.
-
-    Ceiling = max of the three times (perfect-overlap speed of light).
-    Score elements are the REQUIRED ones (S_q*S_kv/2 for causal):
-    diagonal-tile overshoot is an implementation cost and counts against
-    the kernel, not the ceiling.
-
-    Round-5 finding this model exposed: the measured flash kernels sit
-    at the SERIAL sum t_vpu(tile) + t_mxu(tile) per tile (within ~6% on
-    every geometry) — per-tile VPU<->MXU serialization, not exp
-    throughput (r4's conclusion), is the real wall; % of this composite
-    is therefore bounded near t_mxu/(t_mxu + t_vpu) until softmax of
-    tile i overlaps the matmuls of tile i+1. See docs/kernels.md.
-
-    Returns a dict with each term (us), the binding unit, and the
-    ceiling time; divide by a measured time for ``pct_of_composite``.
-    """
-    c = _caps(caps)
-    r = dict(V5E_MEASURED_RATES)
-    if rates:
-        r.update({k: v for k, v in rates.items() if v})
-    frac = 0.5 if causal and q_len == kv_len else 1.0
-    n_scores = batch * num_heads * q_len * kv_len * frac
-    mxu_eff = min(1.0, head_dim / 128.0)
-
-    def mxu_rate(dtype: str) -> float:
-        peak = c.int8_tops if dtype in ("int8",) else c.bf16_tflops
-        return peak * 1e12 * mxu_eff
-
-    t_mxu_s = 2.0 * n_scores * head_dim / mxu_rate(score_dtype)
-    t_mxu_s += 2.0 * n_scores * head_dim / mxu_rate(pv_dtype)
-    t_vpu_s = n_scores / r["vpu_softmax_elems_per_s"]
-    hkv = num_kv_heads or num_heads
-    b = _DTYPE_BYTES[io_dtype]
-    hbm_bytes = (
-        batch * num_heads * q_len * head_dim * b * 2  # q read + o write
-        + batch * hkv * kv_len * head_dim * b * 2  # k + v read
-    )
-    t_hbm_s = hbm_bytes / r["hbm_read_Bps"]
-    t_ceiling = max(t_mxu_s, t_vpu_s, t_hbm_s)
-    bound = {t_mxu_s: "mxu", t_vpu_s: "vpu", t_hbm_s: "hbm"}[t_ceiling]
-    return {
-        "t_mxu_us": t_mxu_s * 1e6,
-        "t_vpu_us": t_vpu_s * 1e6,
-        "t_hbm_us": t_hbm_s * 1e6,
-        "t_ceiling_us": t_ceiling * 1e6,
-        "bound": bound,
-        "n_scores": n_scores,
-    }
-
-
-def composite_fraction(measured_us: float, ceiling: Dict) -> float:
-    """measured time -> fraction of the composite speed of light."""
-    return ceiling["t_ceiling_us"] / max(measured_us, 1e-9)
-
-
 # -- energy model ---------------------------------------------------------
 
 # Analytic per-operation energy constants (documented ESTIMATES, not
-# measurements — the TPU exposes no per-kernel power counter through this
-# runtime). Magnitudes follow the public accelerator-architecture
-# literature (Horowitz ISSCC'14 scaled to ~7nm; HBM2e access energy
-# ~3-7 pJ/bit): an MXU bf16 FLOP costs O(0.1) pJ at the pad, roughly
-# doubled for chip overheads; an HBM byte costs ~100x a FLOP — which is
-# exactly why a bytes-aware model re-ranks kernels that a latency x watts
-# model cannot (VERDICT r3 weak #6: int8-KV's halved HBM traffic was
-# invisible to `latency * 170 W`).
+# measurements: no per-kernel power counter is read here). Magnitudes
+# follow the public accelerator-architecture literature (Horowitz ISSCC'14
+# scaled to ~5nm; HBM3 access energy ~3-5 pJ/bit): a tensor-core bf16
+# FLOP costs O(0.1) pJ, roughly doubled for chip overheads; an HBM byte
+# costs ~100x a FLOP — which is why a bytes-aware model ranks kernels that
+# a latency x watts model cannot (int8 KV's halved traffic).
 PJ_PER_FLOP = {
     "bf16": 0.30,
     "fp16": 0.30,
     "f32": 0.60,
     "int8": 0.12,
     "fp8": 0.12,
-    # QK-only quantized kernels: score matmul at the int8/fp8 energy,
-    # P.V at bf16 — flops split 50/50 (engine._ENERGY_DTYPE).
-    "int8qk": 0.21,
-    "fp8qk": 0.21,
 }
 PJ_PER_HBM_BYTE = 40.0
-#: power drawn regardless of work (clocks, SerDes, DRAM refresh) — the
-#: balance of the ~170 W board power not attributable to the op streams.
-STATIC_POWER_W = 60.0
+#: Share of the card's board power drawn regardless of work (clocks,
+#: links, DRAM refresh): an estimate, applied to ``DevicePeaks.power_w``.
+STATIC_POWER_FRACTION = 0.12
 
 
 def kernel_energy_mj(
-    cost: KernelCost, latency_ms: float, *, dtype: str = "bf16"
+    cost: KernelCost,
+    latency_ms: float,
+    *,
+    dtype: str = "bf16",
+    caps: Optional[DevicePeaks] = None,
 ) -> float:
     """Roofline-derived energy estimate for one kernel execution.
 
     ``E = flops * e_flop(dtype) + hbm_bytes * e_byte + P_static * t``.
-    The dynamic terms scale with the WORK (so int8 halves both the
-    per-FLOP energy and — where the kernel really moves fewer bytes —
-    the HBM term), the static term with measured wall time.
+    The dynamic terms scale with the WORK, the static term with measured
+    wall time at a fixed share of the card's board power.
     """
     e_flop = PJ_PER_FLOP.get(dtype, PJ_PER_FLOP["bf16"])
     dynamic_pj = cost.flops * e_flop + cost.hbm_bytes * PJ_PER_HBM_BYTE
-    static_mj = STATIC_POWER_W * latency_ms  # W * ms = mJ... (1e-3 J = mJ)
-    return dynamic_pj * 1e-9 + static_mj
+    static_w = STATIC_POWER_FRACTION * _caps(caps).power_w
+    return dynamic_pj * 1e-9 + static_w * latency_ms  # W * ms = mJ

@@ -10,7 +10,7 @@ The rebirth of reference intelligence/adaptive_learning.py:55-1024:
   actions (:615-637), with the reward built from normalized latency /
   throughput terms (:669-697). The reference's arms were
   {gpu, photonic, hybrid, auto}; ours are the real kernel registry
-  {fused, flash, flash_fp8}.
+  {fused, flash}.
 
 This sits *beside* the measured-latency router (core/router.py): the
 router exploits direct measurements; this engine generalizes across
@@ -37,7 +37,7 @@ logger = get_logger("adaptive")
 
 def workload_features(w: WorkloadCharacteristics) -> np.ndarray:
     """Feature vector (reference 14-dim extraction :55-150, trimmed to the
-    dimensions that exist on TPU)."""
+    dimensions the engine observes)."""
     return np.array(
         [
             math.log2(max(w.batch_size, 1)),
@@ -169,7 +169,7 @@ class AdaptiveDecisionEngine:
 
     def __init__(
         self,
-        actions: Sequence[str] = ("fused", "flash", "flash_fp8"),
+        actions: Sequence[str] = ("fused", "flash"),
         exploration_rate: float = 0.1,
         seed: int = 0,
     ) -> None:

@@ -1,11 +1,12 @@
-"""Model integration: drop-in modules, GPT-2/BERT/T5/Llama families, HF conversion."""
+"""Model integration: attention dispatch, GPT-2/Llama/T5/BERT families,
+HF conversion.
 
-from .attention import (
-    PhotonicFlashAttention,
-    PhotonicMultiHeadAttention,
-    dispatch_attention,
-)
-from .bert import BertConfig, BertModel, load_hf_bert, transfer_hf_bert
+GPT-2 and Llama are pure functions over their parameter trees and import
+without Flax; the Flax modules (the drop-in attention layers, T5's model
+classes, BERT) load on first use.
+"""
+
+from .attention import dispatch_attention, padding_mask_to_lens_bias
 from .convert import (
     AttentionLayerDetector,
     ConversionReport,
@@ -20,13 +21,27 @@ from .llama import (
     load_hf_llama,
     transfer_hf_llama,
 )
-from .t5 import (
-    T5Config,
-    T5ForConditionalGeneration,
-    T5Model,
-    load_hf_t5,
-    transfer_hf_t5,
-)
+from .t5 import T5Config, load_hf_t5, transfer_hf_t5
+
+_LAZY = {
+    "PhotonicFlashAttention": ".attention_modules",
+    "PhotonicMultiHeadAttention": ".attention_modules",
+    "T5ForConditionalGeneration": ".t5_modules",
+    "T5Model": ".t5_modules",
+    "BertConfig": ".bert",
+    "BertModel": ".bert",
+    "load_hf_bert": ".bert",
+    "transfer_hf_bert": ".bert",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "AttentionLayerDetector",
@@ -50,6 +65,7 @@ __all__ = [
     "load_hf_gpt2",
     "load_hf_llama",
     "load_hf_t5",
+    "padding_mask_to_lens_bias",
     "param_sharding_rules",
     "transfer_hf_llama",
     "transfer_hf_bert",

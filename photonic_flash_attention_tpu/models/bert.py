@@ -1,4 +1,4 @@
-"""BERT model family on the TPU attention engine.
+"""BERT model family on the attention engine (Flax; loaded on first use).
 
 The reference's model-conversion surface names BERT as a first-class
 family: ``AttentionLayerDetector`` extracts BERT attention geometry
@@ -9,7 +9,7 @@ Flax on ``PhotonicFlashAttention``, with exact HF weight transfer
 (``load_hf_bert`` / ``transfer_hf_bert``) so converted checkpoints
 produce identical encodings.
 
-TPU idioms: the encoder stack runs under ``nn.scan`` (one block body in
+Idioms: the encoder stack runs under ``nn.scan`` (one block body in
 HLO regardless of depth), compute in bfloat16 with fp32 params, padding
 masks as boolean keep-masks merged at the attention call.
 """
@@ -19,11 +19,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from .attention import PhotonicFlashAttention, padding_mask_to_lens_bias
+try:
+    import flax.linen as nn
+except ImportError as e:  # pragma: no cover - depends on the environment
+    raise ImportError("the BERT model needs flax (pip install flax)") from e
+
+from .attention import padding_mask_to_lens_bias
+from .attention_modules import PhotonicFlashAttention
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,7 @@ swaps detected attention layers in place. On JAX, module surgery is not
 idiomatic — models are (module, params) pairs — so conversion means:
 detect the source model's attention geometry with the reference's exact
 tactics (class-name regex + q/k/v attribute sniffing, convert.py:93-150),
-build the equivalent model from this package's model zoo on the TPU
+build the equivalent model from this package's model zoo on the
 attention engine, transfer every weight (including the fused-QKV splits
 the reference special-cases per family, convert.py:361-450), and emit a
 ``ConversionReport`` (conversion rate, estimates, warnings,

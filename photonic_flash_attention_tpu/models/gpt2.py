@@ -1,28 +1,37 @@
-"""GPT-2 model family on the TPU attention engine (the flagship E2E model).
+"""GPT-2 model family (the flagship end-to-end model), in plain JAX.
 
 The reference converts HF GPT-2 by swapping its attention layers
 (reference integration/pytorch/convert.py:174-202 GPT-2 config extraction,
 :399-430 fused-c_attn weight transfer); BASELINE.json names GPT-2-medium
-as the E2E target. Here GPT-2 is implemented natively in Flax on
-``PhotonicFlashAttention``, with exact HF weight-loading support
-(``load_hf_gpt2``) so converted checkpoints produce identical logits.
+as the E2E target. Here GPT-2 is a pure function over a parameter pytree
+(``gpt2_forward``), with exact HF weight loading (``load_hf_gpt2``) so
+converted checkpoints produce identical logits. ``GPT2LMHead`` wraps it in
+the ``init``/``apply`` interface the trainer and tests call.
+
+Parameter tree (layer params stacked on a leading (n_layer,) axis, so the
+forward is one ``lax.scan`` over a single block body)::
+
+    wte (V, E), wpe (P, E), ln_f {scale, bias},
+    h/block/{ln_1, ln_2: {scale, bias},
+             attn/{q_proj, k_proj, v_proj, out_proj}: {kernel, bias},
+             mlp/{c_fc, c_proj}: {kernel, bias}}
 
 Sharding: ``param_sharding_rules`` returns a PartitionSpec tree for
 tensor-parallel (attention heads + MLP) × data-parallel execution over a
-``Mesh`` — the real version of the reference's simulated distribution.
+``Mesh``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from .attention import PhotonicFlashAttention
+from .attention import dispatch_attention
+from .functional import FunctionalModel, dense_init, layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,104 +65,109 @@ class GPT2Config:
         return cls(vocab_size=1024, n_positions=256, n_embd=128, n_layer=2, n_head=4)
 
 
-class MLP(nn.Module):
-    config: GPT2Config
-
-    @nn.compact
-    def __call__(self, x: jax.Array) -> jax.Array:
-        cfg = self.config
-        h = nn.Dense(4 * cfg.n_embd, dtype=cfg.dtype, name="c_fc")(x)
-        h = nn.gelu(h, approximate=True)
-        return nn.Dense(cfg.n_embd, dtype=cfg.dtype, name="c_proj")(h)
-
-
-class Block(nn.Module):
-    config: GPT2Config
-
-    @nn.compact
-    def __call__(self, x: jax.Array, deterministic: bool = True) -> jax.Array:
-        cfg = self.config
-        h = nn.LayerNorm(epsilon=cfg.layer_norm_epsilon, dtype=cfg.dtype, name="ln_1")(x)
-        attn_out, _ = PhotonicFlashAttention(
-            embed_dim=cfg.n_embd,
-            num_heads=cfg.n_head,
-            causal=True,
-            attention_dropout=cfg.attn_pdrop,
-            dtype=cfg.dtype,
-            adaptive=False,  # in-model calls are traced; static dispatch
-            name="attn",
-        )(h, deterministic=deterministic)
-        x = x + attn_out
-        h = nn.LayerNorm(epsilon=cfg.layer_norm_epsilon, dtype=cfg.dtype, name="ln_2")(x)
-        return x + MLP(cfg, name="mlp")(h)
+def gpt2_init_params(cfg: GPT2Config, rng: jax.Array) -> Dict[str, Any]:
+    """Random parameters (fp32) in the layout of ``transfer_hf_gpt2``."""
+    e, L = cfg.n_embd, cfg.n_layer
+    keys = jax.random.split(rng, 8)
+    ln = lambda: {"scale": jnp.ones((L, e)), "bias": jnp.zeros((L, e))}  # noqa: E731
+    return {
+        "wte": 0.02 * jax.random.normal(keys[0], (cfg.vocab_size, e)),
+        "wpe": 0.01 * jax.random.normal(keys[1], (cfg.n_positions, e)),
+        "ln_f": {"scale": jnp.ones((e,)), "bias": jnp.zeros((e,))},
+        "h": {
+            "block": {
+                "ln_1": ln(),
+                "ln_2": ln(),
+                "attn": {
+                    "q_proj": dense_init(keys[2], L, e, e),
+                    "k_proj": dense_init(keys[3], L, e, e),
+                    "v_proj": dense_init(keys[4], L, e, e),
+                    "out_proj": dense_init(keys[5], L, e, e),
+                },
+                "mlp": {
+                    "c_fc": dense_init(keys[6], L, e, 4 * e),
+                    "c_proj": dense_init(keys[7], L, 4 * e, e),
+                },
+            }
+        },
+    }
 
 
-class _ScanBlock(nn.Module):
-    """Scan-compatible wrapper: (carry, _) -> (carry, None)."""
-
-    config: GPT2Config
-    deterministic: bool = True
-
-    @nn.compact
-    def __call__(self, x: jax.Array, _unused) -> Tuple[jax.Array, None]:
-        return Block(self.config, name="block")(x, self.deterministic), None
+def _dense(x, p):
+    return jnp.dot(x, p["kernel"].astype(x.dtype)) + p["bias"].astype(x.dtype)
 
 
-class GPT2LMHead(nn.Module):
-    """GPT-2 with tied-embedding LM head. Input: int32 (B, S) token ids.
+def gpt2_forward(
+    params: Dict[str, Any],
+    cfg: GPT2Config,
+    input_ids: jax.Array,
+    *,
+    deterministic: bool = True,
+    positions: Optional[jax.Array] = None,
+    dropout_rng: Optional[jax.Array] = None,
+    attention: Optional[Callable] = None,
+) -> jax.Array:
+    """Logits (B, S, V) of the tied-embedding GPT-2 LM for int32 (B, S) ids.
 
-    ``scan_layers=True`` (default) runs the transformer stack as one
-    ``nn.scan`` over stacked layer params — the compiled program contains
-    a single block body instead of ``n_layer`` unrolled copies, cutting
-    compile time/HLO size ~n_layer-fold (idiomatic TPU/XLA practice).
-    Layer params then carry a leading (n_layer,) axis.
+    Train mode (``deterministic=False`` with ``dropout_rng``) applies
+    ``cfg.attn_pdrop`` to the attention probabilities inside the kernel;
+    each layer draws its own seed. ``attention(q, k, v) -> out`` replaces
+    the causal attention of every layer (a reference run).
     """
+    b, s = input_ids.shape
+    h = cfg.n_head
+    d = cfg.n_embd // h
+    eps = cfg.layer_norm_epsilon
+    if positions is None:
+        positions = jnp.arange(s, dtype=jnp.int32)[None, :]
+    wte = params["wte"].astype(cfg.dtype)
+    x = wte[input_ids] + params["wpe"].astype(cfg.dtype)[positions]
+    rate = cfg.attn_pdrop if (not deterministic and dropout_rng is not None) else 0.0
 
-    config: GPT2Config
-    scan_layers: bool = True
-
-    @nn.compact
-    def __call__(
-        self,
-        input_ids: jax.Array,
-        *,
-        deterministic: bool = True,
-        positions: Optional[jax.Array] = None,
-    ) -> jax.Array:
-        cfg = self.config
-        b, s = input_ids.shape
-        wte = self.param(
-            "wte",
-            nn.initializers.normal(0.02),
-            (cfg.vocab_size, cfg.n_embd),
-            jnp.float32,
-        )
-        wpe = self.param(
-            "wpe",
-            nn.initializers.normal(0.01),
-            (cfg.n_positions, cfg.n_embd),
-            jnp.float32,
-        )
-        if positions is None:
-            positions = jnp.arange(s, dtype=jnp.int32)[None, :]
-        x = wte.astype(cfg.dtype)[input_ids] + wpe.astype(cfg.dtype)[positions]
-        if self.scan_layers:
-            scanned = nn.scan(
-                _ScanBlock,
-                variable_axes={"params": 0},
-                # Each layer draws its own dropout stream (ignored when no
-                # 'dropout' rng is provided, i.e. deterministic runs).
-                split_rngs={"params": True, "dropout": True},
-                length=cfg.n_layer,
-                metadata_params={nn.PARTITION_NAME: "layers"},
-            )(cfg, deterministic, name="h")
-            x, _ = scanned(x, None)
+    def block(x, xs):
+        p, lyr = xs
+        hin = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"], eps)
+        a = p["attn"]
+        q = _dense(hin, a["q_proj"]).reshape(b, s, h, d)
+        k = _dense(hin, a["k_proj"]).reshape(b, s, h, d)
+        v = _dense(hin, a["v_proj"]).reshape(b, s, h, d)
+        seed = None
+        if rate > 0.0:
+            seed = jax.random.randint(
+                jax.random.fold_in(dropout_rng, lyr), (1,), 0,
+                jnp.iinfo(jnp.int32).max, dtype=jnp.int32,
+            )
+        if attention is not None:
+            out = attention(q, k, v)
         else:
-            for i in range(cfg.n_layer):
-                x = Block(cfg, name=f"h_{i}")(x, deterministic=deterministic)
-        x = nn.LayerNorm(epsilon=cfg.layer_norm_epsilon, dtype=cfg.dtype, name="ln_f")(x)
-        logits = x @ wte.astype(cfg.dtype).T  # tied head
-        return logits
+            out, _ = dispatch_attention(
+                q, k, v, causal=True, dropout_rate=rate, dropout_seed=seed
+            )
+        x = x + _dense(out.reshape(b, s, h * d), a["out_proj"])
+        h2 = layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"], eps)
+        m = jax.nn.gelu(_dense(h2, p["mlp"]["c_fc"]), approximate=True)
+        return x + _dense(m, p["mlp"]["c_proj"]), None
+
+    x, _ = jax.lax.scan(
+        block, x, (params["h"]["block"], jnp.arange(cfg.n_layer, dtype=jnp.int32))
+    )
+    x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"], eps)
+    # Tied head; float32 logits (bf16 operands, f32 accumulation).
+    return jnp.dot(x, wte.T, preferred_element_type=jnp.float32)
+
+
+class GPT2LMHead(FunctionalModel):
+    """GPT-2 with tied-embedding LM head. Input: int32 (B, S) token ids."""
+
+    def init_params(self, rng, *_args):
+        return gpt2_init_params(self.config, rng)
+
+    def forward(self, params, input_ids, *, deterministic=True, positions=None,
+                dropout_rng=None):
+        return gpt2_forward(
+            params, self.config, input_ids, deterministic=deterministic,
+            positions=positions, dropout_rng=dropout_rng,
+        )
 
 
 def param_sharding_rules(params: Dict, mesh_axes: Tuple[str, str] = ("data", "model")):
@@ -220,7 +234,7 @@ def transfer_hf_gpt2(hf, dtype=jnp.bfloat16):
 
     Handles the fused ``c_attn`` QKV split the reference handles in
     ``_transfer_weights`` (convert.py:399-430): HF GPT-2 uses Conv1D
-    ((in, out) kernels, no transpose needed for flax Dense) with QKV
+    ((in, out) kernels, no transpose needed) with QKV
     concatenated on the output axis. Accepts ``GPT2LMHeadModel`` or bare
     ``GPT2Model`` (state-dict keys are normalized to the ``transformer.``
     prefix).

@@ -7,16 +7,16 @@ thread-simulated). Here, one jit-compiled step function per phase:
 * ``prefill_step`` — full-prompt forward with the flash kernel, writing
   every token's K/V into the sequence's pages (scatter by flat slot ids).
 * ``decode_step`` — one token per sequence: QKV projection, K/V page
-  write, paged attention against the (optionally INT8) page pool.
+  write (an XLA scatter), paged attention against the (optionally INT8)
+  page pool.
 
 Both operate directly on the ``GPT2LMHead`` parameter pytree (scanned
 layout: layer params stacked on a leading (L,) axis) via ``lax.scan``
 over layers, so the compiled program holds one layer body.
 
 Cache layout (all layers in one array for single-scatter updates),
-token-minor so the Pallas decode kernel can DMA 128-aligned page slices
-(see ops/paged.py):
-  k_pages/v_pages: (L, Hkv, num_pages, D, page_size)
+token-major (see ops/paged.py):
+  k_pages/v_pages: (L, Hkv, num_pages, page_size, D)
   k_scales/v_scales: (L, Hkv, num_pages, page_size) fp32 (int8 mode)
 
 Host-side page tables live in :class:`..core.serving.ServingEngine`.
@@ -32,12 +32,9 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.flash import flash_attention
-from ..ops.flash_unrolled import flash_attention_best
-from ..ops.paged import paged_decode_attention
+from ..ops.paged import gather_history, paged_attention, write_tokens
 from ..ops.reference import DEFAULT_MASK_VALUE
 from .gpt2 import GPT2Config
-
-INT8_MAX = 127.0
 
 
 @jax.tree_util.register_pytree_node_class
@@ -45,7 +42,7 @@ INT8_MAX = 127.0
 class KVPages:
     """Device-side paged KV store for all layers."""
 
-    k: jax.Array  # (L, Hkv, P, D, page)
+    k: jax.Array  # (L, Hkv, P, page, D)
     v: jax.Array
     k_scales: Optional[jax.Array]  # (L, Hkv, P, page) or None
     v_scales: Optional[jax.Array]
@@ -66,7 +63,7 @@ class KVPages:
         cfg: GPT2Config, num_pages: int, page_size: int, dtype=jnp.bfloat16
     ) -> "KVPages":
         head_dim = cfg.n_embd // cfg.n_head
-        shape = (cfg.n_layer, cfg.n_head, num_pages, head_dim, page_size)
+        shape = (cfg.n_layer, cfg.n_head, num_pages, page_size, head_dim)
         quant = dtype == jnp.int8
         sshape = (cfg.n_layer, cfg.n_head, num_pages, page_size)
         return KVPages(
@@ -99,23 +96,13 @@ def _dense_row(x, kernel, bias, tp_axis):
     return y + bias.astype(x.dtype)
 
 
-def _quant_tokens(x: jax.Array) -> Tuple[jax.Array, jax.Array]:
-    """Per-token int8 quantization. x: (..., D) -> payload int8, scales."""
-    absmax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1)
-    scale = jnp.where(absmax == 0.0, 1.0, absmax / INT8_MAX)
-    payload = jnp.clip(
-        jnp.round(x.astype(jnp.float32) / scale[..., None]), -INT8_MAX, INT8_MAX
-    ).astype(jnp.int8)
-    return payload, scale
-
-
 def _pages_to_scan_tree(pages: KVPages) -> Dict[str, jax.Array]:
     dummy = jnp.zeros((pages.k.shape[0], 1, 1, 1), jnp.float32)
     return {
         "k": pages.k,
         "v": pages.v,
         "ks": pages.k_scales if pages.quantized else dummy,
-        "vs": pages.v_scales if pages.quantized else dummy,
+        "vs": pages.v_scales if pages.quantized else jnp.zeros_like(dummy),
     }
 
 
@@ -128,7 +115,9 @@ def _scan_tree_to_pages(tree: Dict[str, jax.Array], quantized: bool) -> KVPages:
     )
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized", "tp_axis"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized", "tp_axis"), donate_argnames=("pages_tree",)
+)
 def prefill_step(
     params: Dict[str, Any],
     cfg: GPT2Config,
@@ -170,7 +159,7 @@ def prefill_step(
         qh = q.reshape(b, s, h_loc, d)
         kh = k.reshape(b, s, h_loc, d)
         vh = v.reshape(b, s, h_loc, d)
-        pool = _decode_write(
+        pool = write_tokens(
             pool,
             kh.reshape(b * s, h_loc, d),
             vh.reshape(b * s, h_loc, d),
@@ -178,7 +167,7 @@ def prefill_step(
             lyr,
             quantized,
         )
-        attn = flash_attention_best(qh, kh, vh, causal=True)
+        attn = flash_attention(qh, kh, vh, causal=True)
         attn = attn.reshape(b, s, h_loc * d)
         attn = _dense_row(
             attn, p_l["attn"]["out_proj"]["kernel"],
@@ -203,33 +192,16 @@ def prefill_step(
     # Last *real* token's logits per row.
     idx = jnp.clip(prompt_lengths - 1, 0, s - 1)
     x_last = jnp.take_along_axis(x, idx[:, None, None], axis=1)[:, 0]
-    logits = x_last @ params["wte"].astype(cfg.dtype).T
+    logits = jnp.dot(
+        x_last, params["wte"].astype(cfg.dtype).T, preferred_element_type=jnp.float32
+    )
     return logits.astype(jnp.float32), new_cache
 
 
-def _gather_history(pool, page_tables, lyr, n_hist_pages, quantized):
-    """Gather the first ``n_hist_pages`` pages of each row into dense
-    (B, s_hist, Hkv, D) K/V (dequantized). Token-minor pages transpose
-    back to token-major for the flash kernel."""
-    page = pool["k"].shape[-1]
-    pt = page_tables[:, :n_hist_pages]  # (B, pps)
-
-    def gather(name, sname):
-        g = pool[name][lyr][:, pt]  # (Hkv, B, pps, D, page)
-        g = g.transpose(1, 2, 4, 0, 3)  # (B, pps, page, Hkv, D)
-        b, pps, pg, hkv, d = g.shape
-        g = g.reshape(b, pps * pg, hkv, d)
-        if quantized:
-            sc = pool[sname][lyr][:, pt]  # (Hkv, B, pps, page)
-            sc = sc.transpose(1, 2, 3, 0).reshape(b, pps * pg, hkv)
-            return g.astype(jnp.float32) * sc[..., None]
-        return g
-
-    return gather("k", "ks"), gather("v", "vs")
-
-
 @functools.partial(
-    jax.jit, static_argnames=("cfg", "quantized", "s_hist", "tp_axis")
+    jax.jit,
+    static_argnames=("cfg", "quantized", "s_hist", "tp_axis"),
+    donate_argnames=("pages_tree",),
 )
 def prefill_chunk_step(
     params: Dict[str, Any],
@@ -264,7 +236,7 @@ def prefill_chunk_step(
     b, c = input_ids.shape
     h, d = cfg.n_head, cfg.n_embd // cfg.n_head
     eps = cfg.layer_norm_epsilon
-    page = pages_tree["k"].shape[-1]
+    page = pages_tree["k"].shape[-2]
     n_hist_pages = s_hist // page
     positions = chunk_start[:, None] + jnp.arange(c, dtype=jnp.int32)[None]
     positions = jnp.clip(positions, 0, cfg.n_positions - 1)
@@ -296,14 +268,14 @@ def prefill_chunk_step(
         kh = k.reshape(b, c, h_loc, d)
         vh = v.reshape(b, c, h_loc, d)
         if n_hist_pages > 0:
-            k_hist, v_hist = _gather_history(
+            k_hist, v_hist = gather_history(
                 pool, page_tables, lyr, n_hist_pages, quantized
             )
             k_cat = jnp.concatenate([k_hist.astype(qh.dtype), kh], axis=1)
             v_cat = jnp.concatenate([v_hist.astype(qh.dtype), vh], axis=1)
         else:
             k_cat, v_cat = kh, vh
-        pool = _decode_write(
+        pool = write_tokens(
             pool,
             kh.reshape(b * c, h_loc, d),
             vh.reshape(b * c, h_loc, d),
@@ -338,51 +310,15 @@ def prefill_chunk_step(
     x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"], eps)
     idx = jnp.clip(chunk_lens - 1, 0, c - 1)
     x_last = jnp.take_along_axis(x, idx[:, None, None], axis=1)[:, 0]
-    logits = x_last @ params["wte"].astype(cfg.dtype).T
+    logits = jnp.dot(
+        x_last, params["wte"].astype(cfg.dtype).T, preferred_element_type=jnp.float32
+    )
     return logits.astype(jnp.float32), new_cache
 
 
-def _decode_write(pool, kh, vh, flat_slots, lyr, quantized):
-    """In-place token write into the full multi-layer pool.
-
-    A plain XLA scatter at ``[lyr, :, pids, :, offs]`` — updating the
-    pool as a whole-array scan CARRY lets XLA alias it in place (the
-    operand is dead after the write). The old structure (per-layer pool
-    slices threaded as scan xs/ys) forced a fresh pool-slice buffer per
-    layer and measured ~3.5 ms/step for GPT-2-small on v5e. A direct
-    Pallas DMA write (ops/paged.py::paged_token_write) is not lowerable
-    for this token-minor layout — single-token columns violate Mosaic's
-    128-aligned minor-dim DMA slice rule.
-    """
-    pool = dict(pool)
-    page = pool["k"].shape[-1]
-    pids = flat_slots // page
-    offs = flat_slots % page
-    if quantized:
-        k8, ks = _quant_tokens(kh)
-        v8, vs = _quant_tokens(vh)
-        # Value shape (B, Hkv, D): non-adjacent advanced indices move to
-        # the front (numpy rule).
-        pool["k"] = pool["k"].at[lyr, :, pids, :, offs].set(k8)
-        pool["v"] = pool["v"].at[lyr, :, pids, :, offs].set(v8)
-        # lyr is a TRACED scalar, i.e. an advanced index: combined with
-        # pids/offs it is non-adjacent (the Hkv slice sits between), so
-        # the broadcast (B,) batch moves to the FRONT -> value (B, Hkv).
-        # (Without lyr the old per-layer write had adjacent advanced
-        # indices staying in place -> (Hkv, B), hence its ks.T.)
-        pool["ks"] = pool["ks"].at[lyr, :, pids, offs].set(ks)
-        pool["vs"] = pool["vs"].at[lyr, :, pids, offs].set(vs)
-    else:
-        pool["k"] = pool["k"].at[lyr, :, pids, :, offs].set(
-            kh.astype(pool["k"].dtype)
-        )
-        pool["v"] = pool["v"].at[lyr, :, pids, :, offs].set(
-            vh.astype(pool["v"].dtype)
-        )
-    return pool
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized", "tp_axis"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized", "tp_axis"), donate_argnames=("pages_tree",)
+)
 def decode_step(
     params: Dict[str, Any],
     cfg: GPT2Config,
@@ -397,11 +333,10 @@ def decode_step(
 ) -> Tuple[jax.Array, Dict[str, jax.Array]]:
     """One decode token per sequence. Returns (logits (B, V), new pages).
 
-    The full (L, ...) pool rides the layer scan as a CARRY (updated
-    in place by the Pallas token-write kernel + read by the
-    layer-indexed paged-attention kernel). Threading per-layer pool
-    slices as scan xs/ys instead measured ~3 ms/step of pure slice/stack
-    HBM traffic on v5e.
+    The full (L, ...) pool rides the layer scan as a CARRY: the token's
+    K/V is scattered into it in place, and the paged kernel reads the
+    layer it is told to. Threading per-layer pool slices as scan xs/ys
+    instead would copy a layer of the pool per layer.
     """
     b = input_ids.shape[0]
     h, d = cfg.n_head, cfg.n_embd // cfg.n_head
@@ -422,30 +357,17 @@ def decode_step(
         h_loc = q.shape[-1] // d  # local heads (h / n_model under TP)
         kh = k.reshape(b, h_loc, d)
         vh = v.reshape(b, h_loc, d)
-        # Fused write+attend: ONE pallas call writes the token's K/V
-        # column into its page (pools genuinely aliased in/out) and
-        # attends over the pool. A separate scatter would give the
-        # written pool two consumers (attention + next-layer carry) and
-        # force XLA to copy the whole pool every layer (~1 ms/layer for
-        # a 640 MB pool on v5e, measured).
-        pool = dict(pool)
-        outs = paged_decode_attention(
-            q.reshape(b, h_loc, d).astype(jnp.float32),
-            kh,
-            vh,
+        pool = write_tokens(pool, kh, vh, flat_slots, lyr, quantized)
+        attn = paged_attention(
+            q.reshape(b, h_loc, d),
             pool["k"],
             pool["v"],
             lengths,
             page_tables,
-            flat_slots,
-            lyr,
             pool["ks"] if quantized else None,
             pool["vs"] if quantized else None,
-        )  # (B, H, D) + pools
-        if quantized:
-            attn, pool["k"], pool["v"], pool["ks"], pool["vs"] = outs
-        else:
-            attn, pool["k"], pool["v"] = outs
+            layer=lyr,
+        )  # (B, H, D)
         attn = attn.reshape(b, h_loc * d).astype(x.dtype)
         attn = _dense_row(
             attn, p_l["attn"]["out_proj"]["kernel"],
@@ -467,7 +389,9 @@ def decode_step(
         (blk, jnp.arange(cfg.n_layer, dtype=jnp.int32)),
     )
     x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"], eps)
-    logits = x @ params["wte"].astype(cfg.dtype).T
+    logits = jnp.dot(
+        x, params["wte"].astype(cfg.dtype).T, preferred_element_type=jnp.float32
+    )
     return logits.astype(jnp.float32), new_cache
 
 
@@ -515,7 +439,7 @@ def serving_param_specs(model_axis: str = "model"):
 
 
 def serving_pages_specs(quantized: bool, model_axis: str = "model"):
-    """Page pools shard on the KV-head axis: (L, Hkv, P, D, page)."""
+    """Page pools shard on the KV-head axis: (L, Hkv, P, page, D)."""
     from jax.sharding import PartitionSpec as P
 
     m = model_axis

@@ -1,9 +1,9 @@
-"""Llama model family on the TPU attention engine.
+"""Llama model family on the attention engine, in plain JAX.
 
 Llama is in the reference converter's family-detection list (reference
 integration/pytorch/convert.py — ``_detect_family`` probes for
 "llama") but has no weight-transfer branch there; this module completes
-the surface with a native Flax implementation plus exact HF transfer.
+the surface with a functional implementation plus exact HF transfer.
 Architecturally it exercises the engine features GPT-2/BERT/T5 do not:
 
 * **grouped-query attention** — runs on the flash kernel's native GQA
@@ -12,8 +12,8 @@ Architecturally it exercises the engine features GPT-2/BERT/T5 do not:
   HF ``apply_rotary_pos_emb``),
 * RMSNorm pre-normalization and SwiGLU MLP, all bias-free.
 
-TPU idioms as elsewhere: ``nn.scan`` layer stack, bf16 compute over fp32
-params, tensor-parallel PartitionSpec rules.
+As elsewhere: one ``lax.scan`` over stacked layer params, bf16 compute
+over fp32 params, tensor-parallel PartitionSpec rules.
 """
 
 from __future__ import annotations
@@ -21,12 +21,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from .attention import dispatch_attention
+from .functional import FunctionalModel, dense_init, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,18 +65,6 @@ class LlamaConfig:
         )
 
 
-class RMSNorm(nn.Module):
-    epsilon: float = 1e-6
-    dtype: Any = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x: jax.Array) -> jax.Array:
-        scale = self.param("scale", nn.initializers.ones, (x.shape[-1],), jnp.float32)
-        xf = x.astype(jnp.float32)
-        var = jnp.mean(xf * xf, axis=-1, keepdims=True)
-        return (xf * jax.lax.rsqrt(var + self.epsilon) * scale).astype(self.dtype)
-
-
 def rope_cos_sin(
     positions: jax.Array, head_dim: int, theta: float
 ) -> Tuple[jax.Array, jax.Array]:
@@ -101,123 +89,104 @@ def apply_rope(x: jax.Array, cos: jax.Array, sin: jax.Array) -> jax.Array:
     return out.astype(x.dtype)
 
 
-class LlamaAttention(nn.Module):
-    config: LlamaConfig
+def llama_init_params(cfg: LlamaConfig, rng: jax.Array) -> Dict[str, Any]:
+    """Random parameters (fp32) in the layout of ``transfer_hf_llama``."""
+    e, f, L, hd = (
+        cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, cfg.head_dim
+    )
+    hq, hkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    keys = jax.random.split(rng, 9)
+    params = {
+        "embed_tokens": 0.02 * jax.random.normal(keys[0], (cfg.vocab_size, e)),
+        "layers": {
+            "layer": {
+                "input_ln": {"scale": jnp.ones((L, e))},
+                "post_attn_ln": {"scale": jnp.ones((L, e))},
+                "attn": {
+                    "q_proj": dense_init(keys[1], L, e, hq, bias=False),
+                    "k_proj": dense_init(keys[2], L, e, hkv, bias=False),
+                    "v_proj": dense_init(keys[3], L, e, hkv, bias=False),
+                    "o_proj": dense_init(keys[4], L, hq, e, bias=False),
+                },
+                "mlp": {
+                    "gate_proj": dense_init(keys[5], L, e, f, bias=False),
+                    "up_proj": dense_init(keys[6], L, e, f, bias=False),
+                    "down_proj": dense_init(keys[7], L, f, e, bias=False),
+                },
+            }
+        },
+        "norm": {"scale": jnp.ones((e,))},
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = 0.02 * jax.random.normal(keys[8], (e, cfg.vocab_size))
+    return params
 
-    @nn.compact
-    def __call__(
-        self, x: jax.Array, positions: jax.Array, mask: Optional[jax.Array] = None
-    ) -> jax.Array:
-        cfg = self.config
-        b, s, _ = x.shape
-        hd = cfg.head_dim
-        dense = lambda feats, name: nn.Dense(  # noqa: E731
-            feats, use_bias=False, dtype=cfg.dtype, name=name
-        )
-        q = dense(cfg.num_attention_heads * hd, "q_proj")(x)
-        k = dense(cfg.num_key_value_heads * hd, "k_proj")(x)
-        v = dense(cfg.num_key_value_heads * hd, "v_proj")(x)
-        q = q.reshape(b, s, cfg.num_attention_heads, hd)
-        k = k.reshape(b, s, cfg.num_key_value_heads, hd)
-        v = v.reshape(b, s, cfg.num_key_value_heads, hd)
 
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+def llama_forward(
+    params: Dict[str, Any],
+    cfg: LlamaConfig,
+    input_ids: jax.Array,
+    *,
+    positions: Optional[jax.Array] = None,
+    attention_mask: Optional[jax.Array] = None,
+) -> jax.Array:
+    """Logits (B, S, V) for int32 (B, S) ids; ``attention_mask`` (B, S)
+    marks the keys to attend (1) or ignore (0)."""
+    b, s = input_ids.shape
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    if positions is None:
+        positions = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    mask = None
+    if attention_mask is not None:
+        keep = attention_mask.astype(bool)[:, None, None, :]
+        mask = jnp.broadcast_to(keep, (b, 1, s, s))
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    x = params["embed_tokens"].astype(cfg.dtype)[input_ids]
 
+    def dense(x, p):
+        return jnp.dot(x, p["kernel"].astype(x.dtype))
+
+    def layer(x, p):
+        h = rms_norm(x, p["input_ln"]["scale"], eps)
+        a = p["attn"]
+        q = apply_rope(dense(h, a["q_proj"]).reshape(b, s, hq, hd), cos, sin)
+        k = apply_rope(dense(h, a["k_proj"]).reshape(b, s, hkv, hd), cos, sin)
+        v = dense(h, a["v_proj"]).reshape(b, s, hkv, hd)
         out, _ = dispatch_attention(q, k, v, mask, causal=True)
-        out = out.reshape(b, s, cfg.num_attention_heads * hd)
-        return dense(cfg.hidden_size, "o_proj")(out)
+        x = x + dense(out.reshape(b, s, hq * hd), a["o_proj"])
+        h = rms_norm(x, p["post_attn_ln"]["scale"], eps)
+        m = p["mlp"]
+        gate = jax.nn.silu(dense(h, m["gate_proj"]))
+        return x + dense(gate * dense(h, m["up_proj"]), m["down_proj"]), None
+
+    x, _ = jax.lax.scan(layer, x, params["layers"]["layer"])
+    x = rms_norm(x, params["norm"]["scale"], eps)
+    return lm_head(x, params, cfg)
 
 
-class LlamaMLP(nn.Module):
-    config: LlamaConfig
-
-    @nn.compact
-    def __call__(self, x: jax.Array) -> jax.Array:
-        cfg = self.config
-        dense = lambda feats, name: nn.Dense(  # noqa: E731
-            feats, use_bias=False, dtype=cfg.dtype, name=name
-        )
-        gate = nn.silu(dense(cfg.intermediate_size, "gate_proj")(x))
-        up = dense(cfg.intermediate_size, "up_proj")(x)
-        return dense(cfg.hidden_size, "down_proj")(gate * up)
+def lm_head(x, params, cfg: LlamaConfig):
+    """Float32 logits: bf16 operands, f32 accumulation."""
+    if cfg.tie_word_embeddings or "lm_head" not in params:
+        w = params["embed_tokens"].astype(cfg.dtype).T
+    else:
+        w = params["lm_head"].astype(cfg.dtype)
+    return jnp.dot(x, w, preferred_element_type=jnp.float32)
 
 
-class LlamaLayer(nn.Module):
-    config: LlamaConfig
-
-    @nn.compact
-    def __call__(
-        self, x: jax.Array, positions: jax.Array, mask: Optional[jax.Array]
-    ) -> jax.Array:
-        cfg = self.config
-        h = RMSNorm(cfg.rms_norm_eps, cfg.dtype, name="input_ln")(x)
-        x = x + LlamaAttention(cfg, name="attn")(h, positions, mask)
-        h = RMSNorm(cfg.rms_norm_eps, cfg.dtype, name="post_attn_ln")(x)
-        return x + LlamaMLP(cfg, name="mlp")(h)
-
-
-class _ScanLayer(nn.Module):
-    config: LlamaConfig
-
-    @nn.compact
-    def __call__(self, x, positions, mask):
-        return LlamaLayer(self.config, name="layer")(x, positions, mask), None
-
-
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(FunctionalModel):
     """Llama with LM head. Input: int32 (B, S) token ids."""
 
-    config: LlamaConfig
-    scan_layers: bool = True
+    def init_params(self, rng, *_args):
+        return llama_init_params(self.config, rng)
 
-    @nn.compact
-    def __call__(
-        self,
-        input_ids: jax.Array,
-        *,
-        positions: Optional[jax.Array] = None,
-        attention_mask: Optional[jax.Array] = None,
-    ) -> jax.Array:
-        cfg = self.config
-        b, s = input_ids.shape
-        embed = self.param(
-            "embed_tokens",
-            nn.initializers.normal(0.02),
-            (cfg.vocab_size, cfg.hidden_size),
-            jnp.float32,
+    def forward(self, params, input_ids, *, deterministic=True, dropout_rng=None,
+                positions=None, attention_mask=None):
+        del deterministic, dropout_rng  # no dropout in this family
+        return llama_forward(
+            params, self.config, input_ids, positions=positions,
+            attention_mask=attention_mask,
         )
-        if positions is None:
-            positions = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
-        mask = None
-        if attention_mask is not None:
-            keep = attention_mask.astype(bool)[:, None, None, :]
-            mask = jnp.broadcast_to(keep, (b, 1, s, s))
-        x = embed.astype(cfg.dtype)[input_ids]
-        if self.scan_layers:
-            scanned = nn.scan(
-                _ScanLayer,
-                variable_axes={"params": 0},
-                split_rngs={"params": True},
-                in_axes=(nn.broadcast, nn.broadcast),
-                length=cfg.num_hidden_layers,
-                metadata_params={nn.PARTITION_NAME: "layers"},
-            )(cfg, name="layers")
-            x, _ = scanned(x, positions, mask)
-        else:
-            for i in range(cfg.num_hidden_layers):
-                x = LlamaLayer(cfg, name=f"layer_{i}")(x, positions, mask)
-        x = RMSNorm(cfg.rms_norm_eps, cfg.dtype, name="norm")(x)
-        if cfg.tie_word_embeddings:
-            return x @ embed.astype(cfg.dtype).T
-        head = self.param(
-            "lm_head",
-            nn.initializers.normal(0.02),
-            (cfg.hidden_size, cfg.vocab_size),
-            jnp.float32,
-        )
-        return x @ head.astype(cfg.dtype)
 
 
 def llama_param_sharding_rules(params: Dict, mesh_axes=("data", "model")):

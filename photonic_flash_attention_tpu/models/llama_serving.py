@@ -11,7 +11,7 @@ step structure, with the family's architectural differences:
   (not ``num_attention_heads``) — the KV memory saving GQA exists for —
   and the paged-attention read broadcasts query-head groups natively.
 
-Cache layout: k/v (L, Hkv, num_pages, D, page_size) — token-minor, see
+Cache layout: k/v (L, Hkv, num_pages, page_size, D) — token-major, see
 ops/paged.py — with optional per-token INT8 scales. Host-side page
 tables live in the serving engine.
 """
@@ -25,10 +25,8 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.flash import flash_attention
-from ..ops.flash_unrolled import flash_attention_best
-from ..ops.paged import paged_decode_attention
-from .gpt2_serving import _decode_write
-from .llama import LlamaConfig, apply_rope, rope_cos_sin
+from ..ops.paged import gather_history, paged_attention, write_tokens
+from .llama import LlamaConfig, apply_rope, lm_head, rope_cos_sin
 
 
 def _rms_norm(x, scale, eps):
@@ -49,8 +47,8 @@ def create_llama_pages(
         cfg.num_hidden_layers,
         cfg.num_key_value_heads,
         num_pages,
-        cfg.head_dim,
         page_size,
+        cfg.head_dim,
     )
     quant = dtype == jnp.int8
     sshape = (cfg.num_hidden_layers, cfg.num_key_value_heads, num_pages, page_size)
@@ -59,11 +57,13 @@ def create_llama_pages(
         "k": jnp.zeros(shape, dtype),
         "v": jnp.zeros(shape, dtype),
         "ks": jnp.ones(sshape, jnp.float32) if quant else dummy,
-        "vs": jnp.ones(sshape, jnp.float32) if quant else dummy,
+        "vs": jnp.ones(sshape, jnp.float32) if quant else jnp.zeros_like(dummy),
     }
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized"), donate_argnames=("pages_tree",)
+)
 def llama_prefill_step(
     params: Dict[str, Any],
     cfg: LlamaConfig,
@@ -93,7 +93,7 @@ def llama_prefill_step(
         v = _dense(h_in, a["v_proj"]["kernel"]).reshape(b, s, hkv, d)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        pool = _decode_write(
+        pool = write_tokens(
             pool,
             k.reshape(b * s, hkv, d),
             v.reshape(b * s, hkv, d),
@@ -101,7 +101,7 @@ def llama_prefill_step(
             lyr,
             quantized,
         )
-        attn = flash_attention_best(q, k, v, causal=True)  # native GQA
+        attn = flash_attention(q, k, v, causal=True)  # native GQA
         attn = _dense(attn.reshape(b, s, hq * d), a["o_proj"]["kernel"])
         x = x + attn
         h2 = _rms_norm(x, p_l["post_attn_ln"]["scale"], eps)
@@ -118,17 +118,13 @@ def llama_prefill_step(
     x = _rms_norm(x, params["norm"]["scale"], eps)
     idx = jnp.clip(prompt_lengths - 1, 0, s - 1)
     x_last = jnp.take_along_axis(x, idx[:, None, None], axis=1)[:, 0]
-    logits = _lm_head(x_last, params, cfg)
+    logits = lm_head(x_last, params, cfg)
     return logits.astype(jnp.float32), new_cache
 
 
-def _lm_head(x, params, cfg: LlamaConfig):
-    if cfg.tie_word_embeddings or "lm_head" not in params:
-        return x @ params["embed_tokens"].astype(cfg.dtype).T
-    return x @ params["lm_head"].astype(cfg.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized"), donate_argnames=("pages_tree",)
+)
 def llama_decode_step(
     params: Dict[str, Any],
     cfg: LlamaConfig,
@@ -142,8 +138,8 @@ def llama_decode_step(
 ) -> Tuple[jax.Array, Dict[str, jax.Array]]:
     """One decode token per sequence. Returns (logits (B, V), new pages).
 
-    Full-pool carry + Pallas token write + layer-indexed paged attention
-    — same structure and rationale as gpt2_serving.decode_step.
+    Full-pool carry + scattered token write + layer-indexed paged
+    attention — same structure and rationale as gpt2_serving.decode_step.
     """
     b = input_ids.shape[0]
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -163,25 +159,17 @@ def llama_decode_step(
         q = apply_rope(q, cos, sin)[:, 0]  # (B, Hq, D)
         k = apply_rope(k, cos, sin)[:, 0]  # (B, Hkv, D)
         v = v[:, 0]
-        # Fused write+attend (see gpt2_serving.decode_step rationale).
-        pool = dict(pool)
-        outs = paged_decode_attention(
-            q.astype(jnp.float32),
-            k,
-            v,
+        pool = write_tokens(pool, k, v, flat_slots, lyr, quantized)
+        attn = paged_attention(
+            q,
             pool["k"],
             pool["v"],
             lengths,
             page_tables,
-            flat_slots,
-            lyr,
             pool["ks"] if quantized else None,
             pool["vs"] if quantized else None,
-        )  # (B, Hq, D) + pools
-        if quantized:
-            attn, pool["k"], pool["v"], pool["ks"], pool["vs"] = outs
-        else:
-            attn, pool["k"], pool["v"] = outs
+            layer=lyr,
+        )  # (B, Hq, D)
         attn = _dense(attn.reshape(b, hq * d).astype(x.dtype), a["o_proj"]["kernel"])
         x = x + attn
         h2 = _rms_norm(x, p_l["post_attn_ln"]["scale"], eps)
@@ -196,11 +184,13 @@ def llama_decode_step(
         (blk, jnp.arange(cfg.num_hidden_layers, dtype=jnp.int32)),
     )
     x = _rms_norm(x, params["norm"]["scale"], eps)
-    logits = _lm_head(x, params, cfg)
+    logits = lm_head(x, params, cfg)
     return logits.astype(jnp.float32), new_cache
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized", "s_hist"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized", "s_hist"), donate_argnames=("pages_tree",)
+)
 def llama_prefill_chunk_step(
     params: Dict[str, Any],
     cfg: LlamaConfig,
@@ -225,12 +215,11 @@ def llama_prefill_chunk_step(
     query-head groups natively.
     """
     from ..ops.reference import DEFAULT_MASK_VALUE
-    from .gpt2_serving import _gather_history
 
     b, c = input_ids.shape
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
-    page = pages_tree["k"].shape[-1]
+    page = pages_tree["k"].shape[-2]
     n_hist_pages = s_hist // page
     positions = chunk_start[:, None] + jnp.arange(c, dtype=jnp.int32)[None]
     cos, sin = rope_cos_sin(positions, d, cfg.rope_theta)
@@ -255,14 +244,14 @@ def llama_prefill_chunk_step(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if n_hist_pages > 0:
-            k_hist, v_hist = _gather_history(
+            k_hist, v_hist = gather_history(
                 pool, page_tables, lyr, n_hist_pages, quantized
             )
             k_cat = jnp.concatenate([k_hist.astype(q.dtype), k], axis=1)
             v_cat = jnp.concatenate([v_hist.astype(q.dtype), v], axis=1)
         else:
             k_cat, v_cat = k, v
-        pool = _decode_write(
+        pool = write_tokens(
             pool,
             k.reshape(b * c, hkv, d),
             v.reshape(b * c, hkv, d),
@@ -287,5 +276,5 @@ def llama_prefill_chunk_step(
     x = _rms_norm(x, params["norm"]["scale"], eps)
     idx = jnp.clip(chunk_lens - 1, 0, c - 1)
     x_last = jnp.take_along_axis(x, idx[:, None, None], axis=1)[:, 0]
-    logits = _lm_head(x_last, params, cfg)
+    logits = lm_head(x_last, params, cfg)
     return logits.astype(jnp.float32), new_cache

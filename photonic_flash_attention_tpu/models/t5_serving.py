@@ -21,9 +21,9 @@ Operates directly on the flax param tree of
 — layers are already stacked by ``nn.scan``, so the lax.scan layer loop
 consumes them natively.
 
-Cache layout: decoder self-attn pools (L, H, num_pages, D, page) —
-token-minor, see ops/paged.py; cross buffers
-(L, max_batch, H, D, enc_max_len) — also token-minor, so decode
+Cache layout: decoder self-attn pools (L, H, num_pages, page, D) —
+token-major, see ops/paged.py; cross buffers
+(L, max_batch, H, D, enc_max_len) — head-dim-major, so decode
 cross-attention is a batched (H, D) x (H, D, S) contraction with no
 transposes.
 """
@@ -36,7 +36,7 @@ from typing import Any, Dict, Tuple
 import jax
 import jax.numpy as jnp
 
-from ..ops.paged import paged_decode_attention
+from ..ops.paged import paged_attention, write_tokens
 from ..ops.reference import DEFAULT_MASK_VALUE
 from ..ops.rel_bias import relative_position_bucket
 from .t5 import T5Config
@@ -67,7 +67,7 @@ def create_t5_pages(
 ) -> Dict[str, jax.Array]:
     """Decoder self-attn page pools + pinned per-slot cross-KV buffers."""
     L, H, D = cfg.num_decoder_layers, cfg.num_heads, cfg.d_kv
-    shape = (L, H, num_pages, D, page_size)
+    shape = (L, H, num_pages, page_size, D)
     quant = dtype == jnp.int8
     sshape = (L, H, num_pages, page_size)
     dummy = jnp.zeros((L, 1, 1, 1), jnp.float32)
@@ -75,7 +75,7 @@ def create_t5_pages(
         "k": jnp.zeros(shape, dtype),
         "v": jnp.zeros(shape, dtype),
         "ks": jnp.ones(sshape, jnp.float32) if quant else dummy,
-        "vs": jnp.ones(sshape, jnp.float32) if quant else dummy,
+        "vs": jnp.ones(sshape, jnp.float32) if quant else jnp.zeros_like(dummy),
         "cross_k": jnp.zeros((L, max_batch, H, D, enc_max_len), cfg.dtype),
         "cross_v": jnp.zeros((L, max_batch, H, D, enc_max_len), cfg.dtype),
         "enc_len": jnp.zeros((max_batch,), jnp.int32),
@@ -147,7 +147,7 @@ def _t5_decode_core(
     b = input_ids.shape[0]
     H, D = cfg.num_heads, cfg.d_kv
     eps = cfg.layer_norm_epsilon
-    page_size = pages_tree["k"].shape[-1]
+    page_size = pages_tree["k"].shape[-2]
     s_cap = page_tables.shape[1] * page_size
     x = p["shared"].astype(cfg.dtype)[input_ids]  # (B, E)
 
@@ -170,32 +170,25 @@ def _t5_decode_core(
     def layer(carry, xs):
         x, pool = carry
         p_l, lyr = xs
-        # -- paged self-attention (fused write+attend, in-kernel bias) --
+        # -- paged self-attention (scattered write, in-kernel bias) --
         h = _rms(x, p_l["self_attn_ln"]["scale"], eps)
         a = p_l["self_attn"]
         q = _dense(h, a["q"]["kernel"]).reshape(b, H, D)
         k = _dense(h, a["k"]["kernel"]).reshape(b, H, D)
         v = _dense(h, a["v"]["kernel"]).reshape(b, H, D)
-        pool = dict(pool)
-        outs = paged_decode_attention(
-            q.astype(jnp.float32),
-            k,
-            v,
+        pool = write_tokens(pool, k, v, flat_slots, lyr, quantized)
+        attn = paged_attention(
+            q,
             pool["k"],
             pool["v"],
             lengths,
             page_tables,
-            flat_slots,
-            lyr,
             pool["ks"] if quantized else None,
             pool["vs"] if quantized else None,
             sm_scale=1.0,  # T5: unscaled scores
+            layer=lyr,
             token_bias=self_bias,
         )
-        if quantized:
-            attn, pool["k"], pool["v"], pool["ks"], pool["vs"] = outs
-        else:
-            attn, pool["k"], pool["v"] = outs
         x = x + _dense(attn.reshape(b, H * D).astype(x.dtype), a["o"]["kernel"])
 
         # -- cross-attention over the pinned encoder KV --
@@ -230,7 +223,9 @@ def _t5_decode_core(
     return logits.astype(jnp.float32), pool
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized"), donate_argnames=("pages_tree",)
+)
 def t5_prefill_step(
     params: Dict[str, Any],
     cfg: T5Config,
@@ -257,7 +252,7 @@ def t5_prefill_step(
         c = p_l["cross_attn"]
         ck = _dense(enc_out, c["k"]["kernel"]).reshape(1, s, H, D)
         cv = _dense(enc_out, c["v"]["kernel"]).reshape(1, s, H, D)
-        # token-minor (H, D, S)
+        # head-dim-major (H, D, S)
         return None, (ck[0].transpose(1, 2, 0), cv[0].transpose(1, 2, 0))
 
     _, (cks, cvs) = jax.lax.scan(
@@ -296,7 +291,9 @@ def t5_prefill_step(
     return logits, pages_tree
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "quantized"))
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "quantized"), donate_argnames=("pages_tree",)
+)
 def t5_decode_step(
     params: Dict[str, Any],
     cfg: T5Config,

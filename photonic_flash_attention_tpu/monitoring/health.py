@@ -1,9 +1,9 @@
-"""Health + pressure monitoring mapped to real TPU signals.
+"""Health + pressure monitoring mapped to real device signals.
 
 The rebirth of the reference's monitors (reference
 monitoring/health_monitor.py:20-606 pluggable checks + background loop +
 alert callbacks; monitoring/thermal_monitor.py:17-785 5-state machine
-with hysteresis). A TPU VM exposes no die temperature through JAX, so the
+with hysteresis). JAX exposes no die temperature, so the
 "thermal" state machine is re-grounded in the pressure signals that *do*
 exist and matter for serving: HBM utilization, sustained kernel latency
 inflation, and error rate. Same state ladder

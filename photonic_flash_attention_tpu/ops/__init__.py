@@ -1,19 +1,6 @@
 """Compute kernels: flash attention, fused short-seq, quantization, paging."""
 
 from .flash import flash_attention
-from .flash_unrolled import (
-    flash_attention_best,
-    flash_attention_unrolled,
-    unrolled_supported,
-)
-from .flash_fp8 import (
-    flash_attention_fp8,
-    flash_attention_fp8qk,
-    flash_attention_int8,
-    flash_attention_int8full,
-    flash_attention_int8qk,
-    flash_attention_quant,
-)
 from .fused import fused_attention
 from .nonlinearity import (
     NonlinearityType,
@@ -47,15 +34,6 @@ __all__ = [
     "attention_reference",
     "dequantize",
     "flash_attention",
-    "flash_attention_best",
-    "flash_attention_unrolled",
-    "unrolled_supported",
-    "flash_attention_fp8",
-    "flash_attention_fp8qk",
-    "flash_attention_int8",
-    "flash_attention_int8full",
-    "flash_attention_int8qk",
-    "flash_attention_quant",
     "fused_attention",
     "quantization_error",
     "quantize",

@@ -1,20 +1,28 @@
-"""Pallas TPU flash-attention (tiled online-softmax) with custom VJP.
+"""Flash attention on the GPU: cuDNN for the plain cases, a Pallas kernel
+on the Triton route for everything else.
 
-The TPU-native rebirth of the reference's hot loop — the two-level tiled
-online-softmax in ``_tiled_attention`` (reference
-core/flash_attention_3.py:182-262) — as a Mosaic kernel:
+``flash_attention`` chooses by what it can observe. Plain or causal
+self-attention in bf16/fp16 with a head dim cuDNN takes runs on cuDNN's
+fused attention (a library kernel, through ``jax.nn.dot_product_attention``
+with ``implementation="cudnn"``). The rest runs on this module's kernel:
 
-* grid (batch, heads, q-blocks, kv-blocks); kv-blocks is the sequential
-  ("arbitrary") reduction dimension,
-* running max ``m`` / running sum ``l`` / rescaled accumulator in fp32
-  VMEM scratch that persists across kv-blocks,
-* causal tiles above the diagonal are skipped entirely,
-* scores never materialize beyond one (block_q, block_kv) tile.
+* one program per (q block, batch, head); the loop over KV blocks runs
+  inside the program, bounded by causality, the window and ``kv_lens``,
+  so blocks that are masked out are never loaded;
+* the online softmax runs in base 2 with the scale folded into one
+  multiply; the per-row max ``m``, sum ``l`` and accumulator live in
+  registers;
+* GQA reads the KV head ``h // group`` through the block index map;
+* per-key bias, dense bias tiles, ALiBi and T5 bias (rebuilt from iota
+  inside the kernel), a relative-position window and positional-hash
+  dropout are applied per tile;
+* the row logsumexp is written when asked for: the backward pass and ring
+  attention's merge read it.
 
-The backward pass recomputes probabilities from the saved logsumexp
-blockwise (O(S) memory) — the reference differentiates through its tiled
-forward with autograd (no explicit backward kernel exists there), so a
-recompute-based VJP is the faithful-but-faster equivalent.
+The backward pass is two more kernels of the same shape: one program per
+(KV block, batch, head) for dK/dV and one per (q block, batch, head) for
+dQ, recomputing probabilities from the saved logsumexp. The gradient of a
+T5/ALiBi bias table runs as a blockwise XLA scan instead (``_xla_bwd``).
 
 API shape convention: (batch, seq, num_heads, head_dim).
 """
@@ -22,20 +30,17 @@ API shape convention: (batch, seq, num_heads, head_dim).
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .pallas_utils import (
-    NUM_LANES,
-    cdiv,
-    dropout_keep,
-    resolve_interpret,
-    round_up,
-)
+from .. import platform
+from .pallas_utils import dropout_keep, next_pow2, resolve_interpret, round_up
 from .reference import DEFAULT_MASK_VALUE
 from .rel_bias import (
     RelBias,
@@ -43,12 +48,132 @@ from .rel_bias import (
     bias_table,
     rel_statics,
     relative_position_bucket,
-    static_bucket,
 )
 
-# Static rel-bias parameter bundle threaded through custom_vjp:
-# (kind, bidirectional, num_buckets, max_distance). kind "none" disables.
+LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
 _NO_REL = ("none", False, 0, 0)
+# Masked scores in the base-2 domain; finite so that a row whose every
+# score is masked keeps a finite running max.
+_MASK = DEFAULT_MASK_VALUE
+
+
+class _Cfg(NamedTuple):
+    """Static description of one kernel call (hashable for custom_vjp)."""
+
+    causal: bool
+    sm_scale: float
+    window: Optional[Tuple[Optional[int], Optional[int]]]
+    rel: Tuple[str, bool, int, int]
+    dropout_rate: float
+    block_q: int
+    block_kv: int
+    interpret: bool
+
+
+# ---------------------------------------------------------------------------
+# Tile helpers shared by the forward and backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _floordiv(a, b: int):
+    """Floor division of a traced int32 scalar by a positive constant."""
+    return jnp.where(a >= 0, lax.div(a, b), -lax.div(-a + b - 1, b))
+
+
+def _kv_range(cfg: _Cfg, q_lo, q_hi, kv_off, n_kv_blocks: int, len_b):
+    """KV blocks [lo, hi) that any of rows [q_lo, q_hi] (q positions) can see."""
+    bk = cfg.block_kv
+    lo = jnp.int32(0)
+    hi = jnp.int32(n_kv_blocks)
+    if cfg.causal:
+        hi = jnp.minimum(hi, _floordiv(q_hi + kv_off, bk) + 1)
+    if cfg.window is not None:
+        w_lo, w_hi = cfg.window
+        if w_lo is not None:
+            lo = jnp.maximum(lo, _floordiv(q_lo + kv_off + w_lo, bk))
+        if w_hi is not None:
+            hi = jnp.minimum(hi, _floordiv(q_hi + kv_off + w_hi, bk) + 1)
+    if len_b is not None:
+        hi = jnp.minimum(hi, lax.div(len_b + bk - 1, bk))
+    return lo, jnp.maximum(hi, lo)
+
+
+def _q_range(cfg: _Cfg, kv_lo, kv_hi, kv_off, n_q_blocks: int):
+    """q blocks [lo, hi) that can see any of columns [kv_lo, kv_hi]."""
+    bq = cfg.block_q
+    lo = jnp.int32(0)
+    hi = jnp.int32(n_q_blocks)
+    if cfg.causal:
+        lo = jnp.maximum(lo, _floordiv(kv_lo - kv_off, bq))
+    if cfg.window is not None:
+        w_lo, w_hi = cfg.window
+        if w_hi is not None:  # col - row <= w_hi  ->  row >= col - w_hi
+            lo = jnp.maximum(lo, _floordiv(kv_lo - w_hi - kv_off, bq))
+        if w_lo is not None:  # col - row >= w_lo  ->  row <= col - w_lo
+            hi = jnp.minimum(hi, _floordiv(kv_hi - w_lo - kv_off, bq) + 1)
+    return lo, jnp.maximum(hi, lo)
+
+
+def _valid(cfg: _Cfg, rows, cols, kv_len: int, padded_kv: bool, len_b):
+    """Boolean (rows x cols) tile of attendable positions, or None.
+
+    ``rows`` are q positions shifted by the end-alignment offset, i.e. in
+    the KV coordinate frame.
+    """
+    valid = None
+
+    def _and(a, b):
+        return b if a is None else jnp.logical_and(a, b)
+
+    if padded_kv:
+        valid = _and(valid, cols < kv_len)
+    if len_b is not None:
+        valid = _and(valid, cols < len_b)
+    if cfg.causal:
+        valid = _and(valid, cols <= rows)
+    if cfg.window is not None:
+        w_lo, w_hi = cfg.window
+        rel = cols - rows
+        if w_lo is not None:
+            valid = _and(valid, rel >= w_lo)
+        if w_hi is not None:
+            valid = _and(valid, rel <= w_hi)
+    return valid
+
+
+def _bias_tile(cfg: _Cfg, rows, cols, kb_ref, ab_ref, tab_ref, kv_start, block_kv):
+    """Additive score bias of one tile in natural-log units, or None."""
+    bias = None
+
+    def _add(a, b):
+        return b if a is None else a + b
+
+    if kb_ref is not None:
+        bias = _add(bias, kb_ref[pl.ds(kv_start, block_kv)][None, :])
+    if ab_ref is not None:
+        bias = _add(bias, ab_ref[:, pl.ds(kv_start, block_kv)])
+    kind, bidir, nb, maxd = cfg.rel
+    if kind == "alibi":
+        bias = _add(bias, tab_ref[0] * (cols - rows).astype(jnp.float32))
+    elif kind == "t5":
+        bucket = relative_position_bucket(
+            cols - rows, bidirectional=bidir, num_buckets=nb, max_distance=maxd
+        )
+        t5 = jnp.zeros(bucket.shape, jnp.float32)
+        for j in range(nb):
+            t5 = jnp.where(bucket == j, tab_ref[j], t5)
+        bias = _add(bias, t5)
+    return bias
+
+
+def _dropout(cfg: _Cfg, seed_ref, q_rows, cols, kv_len: int, bh):
+    return dropout_keep(seed_ref[0], q_rows, cols, kv_len, cfg.dropout_rate, bh=bh)
+
+
+def _dot(a, b, trans_b=False, trans_a=False):
+    prec = lax.Precision.HIGHEST if a.dtype == jnp.float32 else None
+    return pl.dot(a, b, trans_a=trans_a, trans_b=trans_b, precision=prec)
 
 
 # ---------------------------------------------------------------------------
@@ -56,667 +181,383 @@ _NO_REL = ("none", False, 0, 0)
 # ---------------------------------------------------------------------------
 
 
-def _flash_fwd_kernel(
-    q_ref,
-    k_ref,
-    v_ref,
-    o_ref,
-    lse_ref,  # None when save_residuals=False (inference fast path)
-    m_scratch,
-    l_scratch,
-    acc_scratch,
-    *,
-    sm_scale: float,
-    causal: bool,
-    kv_true_len: int,
-    q_true_len: int,
-    block_q: int,
-    block_kv: int,
-    num_kv_blocks: int,
-    tab_ref=None,  # (H, W) SMEM bias table; None = no bias
-    lens_ref=None,  # (B,) SMEM per-sequence valid KV length; None = all valid
-    kbias_ref=None,  # (1, 1, block_kv) VMEM per-key additive bias tile
-    scale_ref=None,  # (1,) SMEM runtime score scale (int8-QK dequant)
-    seed_ref=None,  # (1,) SMEM dropout seed (attention-prob dropout)
-    vs_ref=None,  # (1, 1, 1, d) VMEM per-column V dequant scales (pv_quant)
-    qkbias_ref=None,  # (1, 1, block_q, block_kv) VMEM dense additive bias tile
-    pv_quant: bool = False,  # int8 P·V: V is int8, P requants via exp-fold
-    dropout_rate: float = 0.0,
-    rel: Tuple[str, bool, int, int] = _NO_REL,
-    window: Optional[Tuple[Optional[int], Optional[int], str]] = None,
-    band_c: Optional[int] = None,  # banded grid: ki = (qi*bq + band_c)//bkv + kb
-    kv_blocks_total: Optional[int] = None,
-    # Causal split (see _causal_split_fwd_impl): "full" = single-pass
-    # causal (mask every visited tile); "interior" = strictly-below-
-    # diagonal tiles ONLY, with NO per-element mask work; "band" =
-    # diagonal-straddling tiles only, causal-masked.
-    causal_mode: str = "full",
+def _fwd_kernel(
+    q_ref, k_ref, v_ref, lens_ref, kb_ref, ab_ref, tab_ref, seed_ref,
+    o_ref, *lse_refs, cfg: _Cfg, q_len: int, kv_len: int, padded_kv: bool,
+    num_heads: int,
 ):
-    qi = pl.program_id(2)
-    kb = pl.program_id(3)
-    bb = pl.program_id(0)
-    if kv_blocks_total is None:
-        kv_blocks_total = num_kv_blocks
-    if band_c is not None:
-        # Banded grid: the kv grid dim only spans the diagonal band; map
-        # the grid step to its true kv block index (may fall off either
-        # end — those steps are skipped below; their DMA clamps to a
-        # valid block and is revisit-cached).
-        ki = (qi * block_q + band_c) // block_kv + kb
-    else:
-        ki = kb
-    # Hoisted: pl.program_id inside a pl.when body breaks the CPU
-    # interpreter lowering (verified with a minimal repro).
-    hh = pl.program_id(1)
+    qi, b, h = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    bq, bk = cfg.block_q, cfg.block_kv
+    n_kv_blocks = k_ref.shape[0] // bk
+    kv_off = kv_len - q_len
+    q_start = qi * bq
+    len_b = lens_ref[0] if lens_ref is not None else None
+    q_pos = q_start + jnp.arange(bq, dtype=jnp.int32)
+    rows = (q_pos + kv_off)[:, None]
+    scale2 = cfg.sm_scale * LOG2E
+    q = q_ref[...]
+    d = q.shape[-1]
 
-    @pl.when(kb == 0)
-    def _init():
-        m_scratch[:] = jnp.full_like(m_scratch, -jnp.inf)
-        l_scratch[:] = jnp.zeros_like(l_scratch)
-        acc_scratch[:] = jnp.zeros_like(acc_scratch)
-
-    # Causal: skip kv blocks entirely above the diagonal. Row/col offsets are
-    # aligned at the sequence end (decode convention) via kv_off.
-    kv_off = kv_true_len - q_true_len
-    # rel = col - row bounds of this tile (used by window skipping & bias).
-    rel_lo_t = ki * block_kv - (qi * block_q + block_q - 1 + kv_off)
-    rel_hi_t = ki * block_kv + block_kv - 1 - (qi * block_q + kv_off)
-    if causal and causal_mode == "interior":
-        # Only tiles entirely below the diagonal: no mask work needed.
-        should_run = rel_hi_t < 0
-    elif causal:
-        # Last usable column for this q block: (qi+1)*block_q - 1 + kv_off.
-        should_run = ki * block_kv <= (qi + 1) * block_q - 1 + kv_off
-        if causal_mode == "band":
-            # Diagonal-straddling tiles only (interior pass covers the rest).
-            should_run = jnp.logical_and(should_run, rel_hi_t >= 0)
-    else:
-        should_run = True
-    if band_c is not None:
-        should_run = jnp.logical_and(
-            jnp.logical_and(should_run, ki >= 0), ki < kv_blocks_total
+    def tile(j, carry, masked: bool):
+        acc, m, l = carry
+        kv_start = j * bk
+        cols = (kv_start + jnp.arange(bk, dtype=jnp.int32))[None, :]
+        k = k_ref[pl.ds(kv_start, bk), :]
+        s = _dot(q, k, trans_b=True) * scale2
+        bias = _bias_tile(cfg, rows, cols, kb_ref, ab_ref, tab_ref, kv_start, bk)
+        if bias is not None:
+            s = jnp.maximum(s + bias * LOG2E, _MASK)
+        valid = (
+            _valid(cfg, rows, cols, kv_len, padded_kv, len_b) if masked else None
         )
-    if window is not None:
-        win_lo, win_hi, win_mode = window
-        if win_mode == "inside":
-            # Skip tiles with no overlap with the [lo, hi] rel band.
-            if win_hi is not None:
-                should_run = jnp.logical_and(should_run, rel_lo_t <= win_hi)
-            if win_lo is not None:
-                should_run = jnp.logical_and(should_run, rel_hi_t >= win_lo)
-        else:  # "outside": valid rel <= lo or rel >= hi
-            inside_only = jnp.logical_and(
-                rel_lo_t > (win_lo if win_lo is not None else -(2 ** 30)),
-                rel_hi_t < (win_hi if win_hi is not None else 2 ** 30),
-            )
-            should_run = jnp.logical_and(
-                should_run, jnp.logical_not(inside_only)
-            )
+        if valid is not None:
+            s = jnp.where(valid, s, _MASK)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        p = jnp.exp2(s - m_new[:, None])
+        if valid is not None:
+            p = jnp.where(valid, p, 0.0)
+        alpha = jnp.exp2(m - m_new)
+        l = l * alpha + jnp.sum(p, axis=1)
+        if cfg.dropout_rate > 0.0:
+            keep = _dropout(cfg, seed_ref, q_pos[:, None], cols, kv_len,
+                            b * num_heads + h)
+            p = jnp.where(keep, p, 0.0) * (1.0 / (1.0 - cfg.dropout_rate))
+        v = v_ref[pl.ds(kv_start, bk), :]
+        acc = acc * alpha[:, None] + _dot(p.astype(v.dtype), v)
+        return acc, m_new, l
 
-    # Per-sequence valid KV lengths (key-padding made kernel-native): any
-    # kv block fully past this row's length is skipped DYNAMICALLY — a
-    # padded batch pays compute for its real tokens only, not the bucket.
-    if lens_ref is not None:
-        len_b = lens_ref[bb]
-        should_run = jnp.logical_and(should_run, ki * block_kv < len_b)
-
-    # The last kv block carries padded columns only when padding exists
-    # (static): interior tiles then skip mask work entirely.
-    has_kv_pad = kv_blocks_total * block_kv > kv_true_len
-
-    # Fold the softmax scale into the (block_q, d) Q tile instead of the
-    # (block_q, block_kv) score tile — 8x fewer VPU multiplies at d=64,
-    # bkv=512. Only when the scale is exactly representable in the input
-    # dtype (d a power of 4 gives an exact bf16 power of two) or the
-    # input is fp32 (rounding ~1e-7, far below kernel tolerance); the
-    # score-side multiply is kept otherwise for bit-faithful softmax.
-    import ml_dtypes
-    import numpy as _np
-
-    int_qk = jnp.issubdtype(q_ref.dtype, jnp.integer)
-    fp8_qk = q_ref.dtype in (jnp.float8_e4m3fn, jnp.float8_e5m2)
-    fold_scale = not int_qk and not fp8_qk and (
-        q_ref.dtype == jnp.float32
-        or float(
-            _np.float32(_np.asarray(sm_scale).astype(ml_dtypes.bfloat16))
-        )
-        == float(sm_scale)
+    lo, hi = _kv_range(cfg, q_start, q_start + bq - 1, kv_off, n_kv_blocks, len_b)
+    carry = (
+        jnp.zeros((bq, d), jnp.float32),
+        jnp.full((bq,), _MASK, jnp.float32),
+        jnp.zeros((bq,), jnp.float32),
     )
-
-    @pl.when(should_run)
-    def _run():
-        q = q_ref[0, 0]  # [block_q, d]
-        if fold_scale:
-            q = q * jnp.asarray(sm_scale, q.dtype)
-        k = k_ref[0, 0]  # [block_kv, d]
-        s = jax.lax.dot_general(
-            q,
-            k,
-            (((1,), (1,)), ((), ())),
-            # int8 Q/K contract on the int8 MXU path (2x bf16 rate); the
-            # int32 accumulator converts once per tile and the per-tensor
-            # dequant scale rides sm_scale (see flash_attention_int8qk).
-            preferred_element_type=jnp.int32 if int_qk else jnp.float32,
-        )
-        if int_qk:
-            s = s.astype(jnp.float32)
-        if scale_ref is not None:
-            # Runtime (traced) score scale: per-tensor int8 dequant x
-            # softmax scale, one SMEM scalar for the whole call.
-            s = s * scale_ref[0]
-        # Natural-exp softmax: measured on v5e, Mosaic's exp lowering
-        # beats an explicit base-2 rewrite (exp2 + folded log2(e) scale
-        # benched ~15% SLOWER end-to-end) — don't "optimize" this.
-        if not fold_scale and scale_ref is None:
-            s = s * sm_scale
-
-        rel_kind, rel_bidir, rel_nb, rel_maxd = rel
-        if rel_kind != "none":
-            # In-kernel relative-position bias: rebuilt from iota per tile
-            # (zero HBM bias traffic — the enabler for T5 at long S, where
-            # the dense bias would be H*S^2*4B). See ops/rel_bias.py.
-            # T5 runs as a two-kernel decomposition (far + band, merged by
-            # logsumexp in the caller): per-tile predication was measured
-            # SLOWER than splitting — lax.cond lowers to execute-both, and
-            # pl.when over a big bias scratch serializes the pipeline.
-            rel_tile = (
-                jax.lax.broadcasted_iota(jnp.int32, (block_q, block_kv), 1)
-                + ki * block_kv
-                - (
-                    jax.lax.broadcasted_iota(jnp.int32, (block_q, block_kv), 0)
-                    + qi * block_q
-                    + kv_off
-                )
-            )
-            if rel_kind == "alibi":
-                s = s + tab_ref[hh, 0] * rel_tile.astype(jnp.float32)
-            elif rel_kind == "t5far":
-                # Saturated region: the bucket of any rel <= -maxd (resp.
-                # >= +maxd) is one STATIC index — two SMEM reads and an
-                # elementwise two-way select (a tile near the diagonal can
-                # contain both saturated sides).
-                left_b = static_bucket(
-                    -rel_maxd,
-                    bidirectional=rel_bidir,
-                    num_buckets=rel_nb,
-                    max_distance=rel_maxd,
-                )
-                right_b = static_bucket(
-                    rel_maxd,
-                    bidirectional=rel_bidir,
-                    num_buckets=rel_nb,
-                    max_distance=rel_maxd,
-                )
-                s = s + jnp.where(
-                    rel_tile < 0, tab_ref[hh, left_b], tab_ref[hh, right_b]
-                )
-            else:  # "t5band": exact per-element lookup, unconditional —
-                # only near-diagonal tiles ever reach this kernel.
-                bucket = relative_position_bucket(
-                    rel_tile,
-                    bidirectional=rel_bidir,
-                    num_buckets=rel_nb,
-                    max_distance=rel_maxd,
-                )
-                bias = jnp.zeros((block_q, block_kv), jnp.float32)
-                for b_ in range(rel_nb):
-                    bias = bias + jnp.where(bucket == b_, tab_ref[hh, b_], 0.0)
-                s = s + bias
-
-        if kbias_ref is not None:
-            # Per-key additive bias (the in-kernel form of an arbitrary
-            # key-padding mask: 0 = attend, DEFAULT_MASK_VALUE = ignore;
-            # also carries real per-key biases). (1, block_kv) broadcast
-            # over q rows is a cheap sublane-broadcast.
-            s = s + kbias_ref[0]
-
-        if qkbias_ref is not None:
-            # Dense (Sq, Skv) additive bias streamed as (block_q,
-            # block_kv) HBM tiles — the generalization of k_bias that
-            # closes the last C1 parity gap: the reference applies an
-            # arbitrary-shape attention_mask inside its tile loop
-            # (reference flash_attention_3.py:150,165-175). Mask form:
-            # 0 = attend, DEFAULT_MASK_VALUE = ignore; real-valued
-            # biases ride the same stream. The tile rides the kv-block
-            # DMA schedule (incl. the causal skip-redirect), so bias
-            # traffic is Sq*Skv*4B instead of the fused path's
-            # H-materialized scores.
-            s = s + qkbias_ref[0, 0]
-
-        def apply_mask(s):
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, (block_q, block_kv), 1)
-                + ki * block_kv
-            )
-            if has_kv_pad:
-                valid = col < kv_true_len
-            else:
-                valid = None
-
-            def _and(a, b):
-                return b if a is None else jnp.logical_and(a, b)
-
-            if lens_ref is not None:
-                valid = _and(valid, col < len_b)
-
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, (block_q, block_kv), 0)
-                + qi * block_q
-                + kv_off
-            )
-            if causal:
-                valid = _and(valid, col <= row)
-            if window is not None:
-                rel_m = col - row
-                lo_, hi_, mode_ = window
-                if mode_ == "inside":
-                    if lo_ is not None:
-                        valid = _and(valid, rel_m >= lo_)
-                    if hi_ is not None:
-                        valid = _and(valid, rel_m <= hi_)
-                else:  # outside
-                    out_ok = None
-                    if lo_ is not None:
-                        out_ok = rel_m <= lo_
-                    if hi_ is not None:
-                        hi_ok = rel_m >= hi_
-                        out_ok = hi_ok if out_ok is None else jnp.logical_or(
-                            out_ok, hi_ok
-                        )
-                    if out_ok is not None:
-                        valid = _and(valid, out_ok)
-            return jnp.where(valid, s, DEFAULT_MASK_VALUE)
-
-        # Mask when any tile could need it: padded last-kv tiles, causal
-        # tiles, rel-window bands, per-row lengths. (A per-tile lax.cond to
-        # skip interior tiles measures SLOWER on v5e — the scalar-core
-        # branch stalls the Mosaic pipeline — so masking is unconditional
-        # when enabled; only the fully-static no-pad non-causal unwindowed
-        # case elides it.)
-        if (
-            has_kv_pad
-            or (causal and causal_mode != "interior")
-            or window is not None
-            or lens_ref is not None
-        ):
-            s = apply_mask(s)
-
-        # Running stats live lane-REPLICATED at (block_q, 128): combining a
-        # (block_q, 1) column with a wide tile costs a Mosaic lane-broadcast
-        # (a cross-lane shuffle) every use. Keeping m/l wide leaves exactly
-        # ONE broadcast per tile (inside the maximum); widening replicated
-        # vectors is a cheap lane-tile / sublane slice. Measured 2x
-        # end-to-end at 512x512 tiles on v5e (1.15 ms -> 0.58 ms).
-        m_prev = m_scratch[:]  # [block_q, 128] replicated
-        l_prev = l_scratch[:]
-        m_curr = jnp.max(s, axis=1, keepdims=True)  # [block_q, 1]
-        m_next = jnp.maximum(m_prev, m_curr)  # the one lane-broadcast
-        rep = block_kv // NUM_LANES
-        m_wide = m_next if rep == 1 else jnp.tile(m_next, (1, rep))
-        if pv_quant:
-            # int8 P·V with a STATIC P scale of 127, for free: fold
-            # ln(127) into the exp argument so p comes out already scaled
-            # to [0, 127] (p_scaled = 127 * softmax numerator). l then
-            # tracks 127*l_true, and the final o = acc/l cancels the
-            # factor exactly — zero extra VPU passes versus bf16.
-            p = jnp.exp(s - m_wide + jnp.float32(4.8441870864585885))
-        else:
-            p = jnp.exp(s - m_wide)
-        alpha = jnp.exp(m_prev - m_next)  # [block_q, 128]
-        l_next = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
-
-        m_scratch[:] = m_next
-        l_scratch[:] = l_next
-
-        v = v_ref[0, 0]  # [block_kv, d]
-        if dropout_rate > 0.0:
-            # Attention-probability dropout (reference applies dropout to
-            # attention weights inside its kernel path,
-            # flash_attention_3.py:43,174-175). The mask multiplies the
-            # P.V operand only — l keeps the FULL softmax sum, so the
-            # normalized weights are dropout(softmax(s)) exactly. The
-            # positional hash regenerates identically in the backward.
-            rows_g = (
-                jax.lax.broadcasted_iota(jnp.int32, (block_q, block_kv), 0)
-                + qi * block_q
-            )
-            cols_g = (
-                jax.lax.broadcasted_iota(jnp.int32, (block_q, block_kv), 1)
-                + ki * block_kv
-            )
-            keep = dropout_keep(
-                seed_ref[0], rows_g, cols_g, kv_true_len, dropout_rate,
-                bh=bb * pl.num_programs(1) + hh,
-            )
-            p_use = jnp.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
-        else:
-            p_use = p
-        if pv_quant:
-            # p_use is in [0, 127]; +0.5 then truncate = round-to-nearest
-            # (127.5 truncates back to 127). Contraction runs on the int8
-            # MXU path; per-column V dequant waits until the final store.
-            p8 = (p_use + jnp.float32(0.5)).astype(jnp.int8)
-            pv = jax.lax.dot(
-                p8, v, preferred_element_type=jnp.int32
-            ).astype(jnp.float32)
-        else:
-            pv = jax.lax.dot(
-                p_use.astype(v.dtype), v, preferred_element_type=jnp.float32
-            )
-        d_ = acc_scratch.shape[-1]
-        alpha_d = alpha[:, :d_] if d_ <= NUM_LANES else jnp.tile(
-            alpha, (1, d_ // NUM_LANES)
-        )
-        acc_scratch[:] = acc_scratch[:] * alpha_d + pv
-
-    @pl.when(kb == num_kv_blocks - 1)
-    def _store():
-        # All-wide finalization (m/l scratch is lane-replicated).
-        l_fin = l_scratch[:]  # [block_q, 128]
-        l_inv = jnp.where(l_fin == 0.0, 1.0, 1.0 / l_fin)
-        d_ = acc_scratch.shape[-1]
-        l_inv_d = l_inv[:, :d_] if d_ <= NUM_LANES else jnp.tile(
-            l_inv, (1, d_ // NUM_LANES)
-        )
-        out = acc_scratch[:] * l_inv_d
-        if pv_quant and vs_ref is not None:
-            out = out * vs_ref[0, 0]  # (1, d) per-column V dequant
-        o_ref[0, 0] = out.astype(o_ref.dtype)
-        if lse_ref is not None:
-            # logsumexp for backward/merging; fully-masked rows -> -inf.
-            lse = m_scratch[:] + jnp.log(jnp.where(l_fin == 0.0, 1.0, l_fin))
-            if pv_quant:
-                # l carries the folded 127 factor (see exp above).
-                lse = lse - jnp.float32(4.8441870864585885)
-            lse_ref[0, 0] = lse
-
-
-def _flash_fwd(
-    q: jax.Array,  # [B, Hq, Sq, D] padded
-    k: jax.Array,  # [B, Hkv, Skv, D] padded (native GQA: Hkv may < Hq)
-    v: jax.Array,
-    *,
-    sm_scale: float,
-    causal: bool,
-    q_true_len: int,
-    kv_true_len: int,
-    block_q: int,
-    block_kv: int,
-    interpret: bool,
-    save_residuals: bool,
-    group: int = 1,
-    tab: Optional[jax.Array] = None,  # (H, W) fp32 rel-bias table
-    kv_lens: Optional[jax.Array] = None,  # (B,) int32 valid KV lengths
-    k_bias: Optional[jax.Array] = None,  # (B, 1, Skv) fp32 per-key bias
-    rel: Tuple[str, bool, int, int] = _NO_REL,
-    window: Optional[Tuple[Optional[int], Optional[int], str]] = None,
-    banded_grid: bool = False,
-    causal_mode: str = "full",
-    score_scale: Optional[jax.Array] = None,  # (1,) fp32 runtime scale
-    out_dtype=None,
-    dropout_rate: float = 0.0,
-    dropout_seed: Optional[jax.Array] = None,  # (1,) int32
-    v_scales: Optional[jax.Array] = None,  # (B, Hkv, 1, D) per-col V scales
-    pv_quant: bool = False,
-    qk_bias: Optional[jax.Array] = None,  # (B, Hb, Sq, Skv) dense bias, Hb in {1, Hq}
-) -> Tuple[jax.Array, Optional[jax.Array]]:
-    if pv_quant:
-        assert dropout_rate == 0.0, "int8 P·V path is inference-only"
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
-    num_q_blocks = sq // block_q
-    num_kv_blocks = skv // block_kv
-    kv_blocks_total = num_kv_blocks
-
-    band_c = None
-    if causal_mode == "band":
-        # Diagonal band of the causal split: the kv grid dim spans only
-        # the <= bq/bkv + 1 tiles that straddle the diagonal per q block.
-        assert causal and window is None
-        band_c = kv_true_len - q_true_len
-        num_kv_blocks = cdiv(block_q, block_kv) + 1
-    elif banded_grid:
-        # Grid the kv dimension over the diagonal band only. Requires an
-        # "inside" window with a finite lower bound (upper bound finite
-        # or implied by causal).
-        assert window is not None and window[2] == "inside" and window[0] is not None
-        lo = window[0]
-        hi = 0 if window[1] is None else window[1]
-        assert causal or window[1] is not None
-        kv_off_ = kv_true_len - q_true_len
-        band_c = kv_off_ + lo
-        # +1 covers straddle; off-range steps are skipped in-kernel (do
-        # NOT clamp to kv_blocks_total — the band start shifts left of 0).
-        span = (hi - lo) + block_q
-        num_kv_blocks = cdiv(span, block_kv) + 1
-
-    grid = (b, h, num_q_blocks, num_kv_blocks)
-
-    out_shape = [
-        jax.ShapeDtypeStruct((b, h, sq, d), out_dtype or q.dtype)
-    ]
-    out_specs = [
-        pl.BlockSpec((1, 1, block_q, d), lambda b_, h_, qi, ki: (b_, h_, qi, 0))
-    ]
-    if save_residuals:
-        # The lse output costs real HBM writes (B*H*S*128 fp32 — 2x the
-        # bf16 output bytes); the inference path skips it entirely.
-        out_shape.append(
-            jax.ShapeDtypeStruct((b, h, sq, NUM_LANES), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec(
-                (1, 1, block_q, NUM_LANES), lambda b_, h_, qi, ki: (b_, h_, qi, 0)
-            )
-        )
-        kernel_fn = _flash_fwd_kernel
-    else:
-        def kernel_fn(q_ref, k_ref, v_ref, o_ref, m_s, l_s, acc_s, *scr, **kw):
-            return _flash_fwd_kernel(
-                q_ref, k_ref, v_ref, o_ref, None, m_s, l_s, acc_s, *scr, **kw
-            )
-
-    has_tab = tab is not None
-    has_lens = kv_lens is not None
-    has_kbias = k_bias is not None
-    has_scale = score_scale is not None
-    has_seed = dropout_rate > 0.0
-    has_vs = v_scales is not None
-    has_qkbias = qk_bias is not None
-    if (
-        has_tab or has_lens or has_kbias or has_scale or has_seed or has_vs
-        or has_qkbias
-    ):
-        # Peel the optional inputs (ordered tab, lens, kbias after q/k/v)
-        # off the positional argument list into keywords.
-        inner = kernel_fn
-
-        def kernel_fn(q_ref, k_ref, v_ref, *rest, **kw):
-            idx = 0
-            opt = {}
-            if has_tab:
-                opt["tab_ref"] = rest[idx]
-                idx += 1
-            if has_lens:
-                opt["lens_ref"] = rest[idx]
-                idx += 1
-            if has_kbias:
-                opt["kbias_ref"] = rest[idx]
-                idx += 1
-            if has_scale:
-                opt["scale_ref"] = rest[idx]
-                idx += 1
-            if has_seed:
-                opt["seed_ref"] = rest[idx]
-                idx += 1
-            if has_vs:
-                opt["vs_ref"] = rest[idx]
-                idx += 1
-            if has_qkbias:
-                opt["qkbias_ref"] = rest[idx]
-                idx += 1
-            return inner(q_ref, k_ref, v_ref, *rest[idx:], **opt, **kw)
-
-    kernel = functools.partial(
-        kernel_fn,
-        sm_scale=sm_scale,
-        causal=causal,
-        kv_true_len=kv_true_len,
-        q_true_len=q_true_len,
-        block_q=block_q,
-        block_kv=block_kv,
-        num_kv_blocks=num_kv_blocks,
-        rel=rel,
-        window=window,
-        band_c=band_c,
-        kv_blocks_total=kv_blocks_total,
-        causal_mode=causal_mode,
-        dropout_rate=dropout_rate,
-        pv_quant=pv_quant,
+    only_causal = (
+        cfg.causal and cfg.window is None and len_b is None and not padded_kv
     )
-
-    if band_c is None:
-        if causal and causal_mode == "interior":
-            # Interior pass: redirect DMA for any tile not strictly below
-            # the diagonal (same skip-aware prefetch as the causal path).
-            kv_off_idx = kv_true_len - q_true_len
-
-            def kv_block_index(qi, ki):
-                return jax.lax.select(
-                    ki * block_kv + block_kv - 1 < qi * block_q + kv_off_idx,
-                    ki,
-                    0,
-                )
-
-        elif causal:
-            # Causal skip-aware prefetch: a kv block above the diagonal is
-            # never read, so redirect its DMA to block 0 — the first block
-            # the NEXT q row needs. The pipeline neither wastes HBM
-            # bandwidth on a dead block nor stalls cold at the row start
-            # (measured ~7% end-to-end on v5e at S=2048, 1024x1024 blocks).
-            kv_off_idx = kv_true_len - q_true_len
-
-            def kv_block_index(qi, ki):
-                return jax.lax.select(
-                    ki * block_kv <= (qi + 1) * block_q - 1 + kv_off_idx,
-                    ki,
-                    0,
-                )
-
-        else:
-            kv_block_index = lambda qi, ki: ki  # noqa: E731
+    if only_causal:
+        # Blocks wholly below the diagonal need no mask: run them first,
+        # then the few that straddle it with the mask.
+        mid = jnp.clip(_floordiv(q_start + kv_off + 1, bk), lo, hi)
+        carry = lax.fori_loop(lo, mid, functools.partial(tile, masked=False), carry)
+        carry = lax.fori_loop(mid, hi, functools.partial(tile, masked=True), carry)
     else:
-        bc, bq_, bkv_, tot = band_c, block_q, block_kv, kv_blocks_total
+        carry = lax.fori_loop(lo, hi, functools.partial(tile, masked=True), carry)
+    acc, m, l = carry
+    empty = l == 0.0
+    l_safe = jnp.where(empty, 1.0, l)
+    o_ref[...] = (acc / l_safe[:, None]).astype(o_ref.dtype)
+    if lse_refs:
+        lse_refs[0][...] = jnp.where(
+            empty, -jnp.inf, (m + jnp.log2(l_safe)) * LN2
+        )
 
-        def kv_block_index(qi, ki):
-            return jnp.clip((qi * bq_ + bc) // bkv_ + ki, 0, tot - 1)
 
+def _num_warps(d: int) -> int:
+    return 4 if d <= 64 else 8
+
+
+def _pad_to(x, axis: int, size: int):
+    if x.shape[axis] == size:
+        return x
+    pads = [(0, 0)] * x.ndim
+    pads[axis] = (0, size - x.shape[axis])
+    return jnp.pad(x, pads)
+
+
+def _head_dim(d: int) -> int:
+    return max(16, next_pow2(d))
+
+
+def _fwd(cfg: _Cfg, q, k, v, lens, kbias, tab, seed, dense_bias=None,
+         need_lse=True):
+    """Run the forward kernel. Returns (o, lse or None); lse is (B, Hq, Sq)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bq, bk = cfg.block_q, cfg.block_kv
+    sq_p, skv_p, dp = round_up(sq, bq), round_up(skv, bk), _head_dim(d)
+    qp = _pad_to(_pad_to(q, 1, sq_p), 3, dp)
+    kp = _pad_to(_pad_to(k, 1, skv_p), 3, dp)
+    vp = _pad_to(_pad_to(v, 1, skv_p), 3, dp)
+
+    lens_in = lens_spec = None
+    if lens is not None:
+        lens_in = lens.astype(jnp.int32).reshape(b, 1)
+        lens_spec = pl.BlockSpec((None, 1), lambda i, bb, h: (bb, 0))
+    kb_in = kb_spec = None
+    if kbias is not None:
+        kb_in = _pad_to(kbias.astype(jnp.float32), 1, skv_p)
+        kb_spec = pl.BlockSpec((None, skv_p), lambda i, bb, h: (bb, 0))
+    ab_in = ab_spec = None
+    if dense_bias is not None:
+        ab_in = _pad_to(_pad_to(dense_bias.astype(jnp.float32), 2, sq_p), 3, skv_p)
+        if ab_in.shape[1] == 1:
+            ab_spec = pl.BlockSpec((None, None, bq, skv_p), lambda i, bb, h: (bb, 0, i, 0))
+        else:
+            ab_spec = pl.BlockSpec((None, None, bq, skv_p), lambda i, bb, h: (bb, h, i, 0))
+    tab_in = tab_spec = None
+    if tab is not None:
+        tab_in = tab.astype(jnp.float32)
+        tab_spec = pl.BlockSpec((None, tab_in.shape[1]), lambda i, bb, h: (h, 0))
+    seed_in = seed_spec = None
+    if seed is not None:
+        seed_in = seed.astype(jnp.int32).reshape(1)
+        seed_spec = pl.BlockSpec((1,), lambda i, bb, h: (0,))
+
+    kv_map = lambda i, bb, h: (bb, 0, h // group, 0)  # noqa: E731
     in_specs = [
-        pl.BlockSpec((1, 1, block_q, d), lambda b_, h_, qi, ki: (b_, h_, qi, 0)),
-        # GQA natively: each group of q heads reads the SAME kv head
-        # tile (index h // group) — no repeated KV in HBM; Mosaic's
-        # revisiting-aware pipeline skips the re-fetch when the index
-        # map returns the same block.
-        pl.BlockSpec(
-            (1, 1, block_kv, d),
-            lambda b_, h_, qi, ki: (b_, h_ // group, kv_block_index(qi, ki), 0),
-        ),
-        pl.BlockSpec(
-            (1, 1, block_kv, d),
-            lambda b_, h_, qi, ki: (b_, h_ // group, kv_block_index(qi, ki), 0),
-        ),
+        pl.BlockSpec((None, bq, None, dp), lambda i, bb, h: (bb, i, h, 0)),
+        pl.BlockSpec((None, skv_p, None, dp), kv_map),
+        pl.BlockSpec((None, skv_p, None, dp), kv_map),
+        lens_spec, kb_spec, ab_spec, tab_spec, seed_spec,
     ]
-    inputs = [q, k, v]
-    if has_tab:
-        # The whole (H, W) table lives in scalar memory (a few KB); the
-        # kernel indexes its head's row by program_id. The per-tile bias
-        # is rebuilt from iota + this table (no HBM bias tensor).
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(tab)
-    if has_lens:
-        # Whole (B,) length vector in scalar memory; indexed by batch id.
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(kv_lens)
-    if has_kbias:
-        # Per-key bias rides the same kv-tile stream as K/V (with the
-        # causal skip-redirect): (1, 1, block_kv) fp32 tiles of (B,1,Skv).
-        in_specs.append(
-            pl.BlockSpec(
-                (1, 1, block_kv),
-                lambda b_, h_, qi, ki: (b_, 0, kv_block_index(qi, ki)),
-            )
-        )
-        inputs.append(k_bias)
-    if has_scale:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(score_scale.astype(jnp.float32).reshape(1))
-    if has_seed:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(dropout_seed.astype(jnp.int32).reshape(1))
-    if has_vs:
-        # Per-column V dequant scales, one (1, D) row per kv head.
-        in_specs.append(
-            pl.BlockSpec(
-                (1, 1, 1, d), lambda b_, h_, qi, ki: (b_, h_ // group, 0, 0)
-            )
-        )
-        inputs.append(v_scales.astype(jnp.float32))
-    if has_qkbias:
-        # Dense bias tiles ride the kv-tile DMA schedule (with the causal
-        # skip-redirect); heads broadcast when the bias head dim is 1.
-        hb = qk_bias.shape[1]
-        in_specs.append(
-            pl.BlockSpec(
-                (1, 1, block_q, block_kv),
-                lambda b_, h_, qi, ki: (
-                    b_,
-                    0 if hb == 1 else h_,
-                    qi,
-                    kv_block_index(qi, ki),
-                ),
-            )
-        )
-        inputs.append(qk_bias.astype(jnp.float32))
-
+    out_shape = [jax.ShapeDtypeStruct((b, sq_p, hq, dp), q.dtype)]
+    out_specs = [pl.BlockSpec((None, bq, None, dp), lambda i, bb, h: (bb, i, h, 0))]
+    if need_lse:
+        out_shape.append(jax.ShapeDtypeStruct((b, hq, sq_p), jnp.float32))
+        out_specs.append(pl.BlockSpec((None, None, bq), lambda i, bb, h: (bb, h, i)))
+    kernel = functools.partial(
+        _fwd_kernel, cfg=cfg, q_len=sq, kv_len=skv, padded_kv=skv_p > skv,
+        num_heads=hq,
+    )
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(sq_p // bq, b, hq),
         in_specs=in_specs,
-        out_specs=tuple(out_specs) if save_residuals else out_specs[0],
-        out_shape=tuple(out_shape) if save_residuals else out_shape[0],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, d), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
+        out_specs=out_specs,
+        out_shape=out_shape,
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(dp), num_stages=2
         ),
-        cost_estimate=pl.CostEstimate(
-            # Two matmuls per visited tile; causal visits ~half the tiles.
-            flops=int(4 * b * h * sq * skv * d * (0.5 if causal else 1.0)),
-            transcendentals=int(b * h * sq * skv * (0.5 if causal else 1.0)),
-            bytes_accessed=sum(
-                x.size * x.dtype.itemsize for x in (q, k, v)
-            )
-            + b * h * sq * d * q.dtype.itemsize,
-        ),
-        interpret=interpret,
-    )(*inputs)
-    if save_residuals:
-        o, lse = outs
-        return o, lse[..., 0]
-    return outs, None
+        interpret=cfg.interpret,
+        backend="triton",
+        name="pfa_flash_fwd",
+    )(qp, kp, vp, lens_in, kb_in, ab_in, tab_in, seed_in)
+    o = outs[0][:, :sq, :, :d]
+    lse = outs[1][:, :, :sq] if need_lse else None
+    return o, lse
 
 
 # ---------------------------------------------------------------------------
-# Backward (blockwise recompute from logsumexp)
+# Backward kernels
 # ---------------------------------------------------------------------------
 
 
-def _flash_bwd(
-    q: jax.Array,  # [B, H, Sq, D] fp32-upcast inside
-    k: jax.Array,
+def _probs(cfg, q, k, rows, cols, lse2, kb_ref, tab_ref, kv_start, bk, kv_len,
+           padded_kv, len_b):
+    """Recompute one tile of probabilities from the saved logsumexp."""
+    s = _dot(q, k, trans_b=True) * (cfg.sm_scale * LOG2E)
+    bias = _bias_tile(cfg, rows, cols, kb_ref, None, tab_ref, kv_start, bk)
+    if bias is not None:
+        s = jnp.maximum(s + bias * LOG2E, _MASK)
+    p = jnp.exp2(s - lse2[:, None])
+    valid = _valid(cfg, rows, cols, kv_len, padded_kv, len_b)
+    if valid is not None:
+        p = jnp.where(valid, p, 0.0)
+    return p
+
+
+def _dkv_kernel(
+    q_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref, lens_ref, kb_ref,
+    seed_ref, dk_ref, dv_ref, *dkb_refs, cfg: _Cfg, q_len: int, kv_len: int,
+    padded_kv: bool, num_heads: int,
+):
+    j, b, h = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    bq, bk = cfg.block_q, cfg.block_kv
+    n_q_blocks = q_ref.shape[0] // bq
+    kv_off = kv_len - q_len
+    kv_start = j * bk
+    cols = (kv_start + jnp.arange(bk, dtype=jnp.int32))[None, :]
+    len_b = lens_ref[0] if lens_ref is not None else None
+    k = k_ref[...]
+    v = v_ref[...]
+    d = k.shape[-1]
+
+    def body(i, carry):
+        dk, dv, dkb = carry
+        q_start = i * bq
+        q_pos = q_start + jnp.arange(bq, dtype=jnp.int32)
+        rows = (q_pos + kv_off)[:, None]
+        q = q_ref[pl.ds(q_start, bq), :]
+        do = do_ref[pl.ds(q_start, bq), :]
+        lse2 = lse_ref[pl.ds(q_start, bq)]
+        delta = delta_ref[pl.ds(q_start, bq)]
+        p = _probs(cfg, q, k, rows, cols, lse2, kb_ref, None, kv_start, bk,
+                   kv_len, padded_kv, len_b)
+        dp = _dot(do, v, trans_b=True)
+        if cfg.dropout_rate > 0.0:
+            keep = _dropout(cfg, seed_ref, q_pos[:, None], cols, kv_len,
+                            b * num_heads + h)
+            inv = 1.0 / (1.0 - cfg.dropout_rate)
+            pd = jnp.where(keep, p * inv, 0.0)
+            dp = jnp.where(keep, dp * inv, 0.0)
+        else:
+            pd = p
+        dv = dv + _dot(pd.astype(do.dtype), do, trans_a=True)
+        ds = p * (dp - delta[:, None])
+        dk = dk + _dot(ds.astype(q.dtype), q, trans_a=True)
+        if dkb is not None:
+            dkb = dkb + jnp.sum(ds, axis=0)
+        return dk, dv, dkb
+
+    lo, hi = _q_range(cfg, kv_start, kv_start + bk - 1, kv_off, n_q_blocks)
+    if len_b is not None:
+        hi = jnp.where(kv_start < len_b, hi, lo)
+    carry = (
+        jnp.zeros((bk, d), jnp.float32),
+        jnp.zeros((bk, d), jnp.float32),
+        jnp.zeros((bk,), jnp.float32) if dkb_refs else None,
+    )
+    dk, dv, dkb = lax.fori_loop(lo, hi, body, carry)
+    dk_ref[...] = (dk * cfg.sm_scale).astype(dk_ref.dtype)
+    dv_ref[...] = dv.astype(dv_ref.dtype)
+    if dkb_refs:
+        dkb_refs[0][...] = dkb
+
+
+def _dq_kernel(
+    q_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref, lens_ref, kb_ref,
+    tab_ref, seed_ref, dq_ref, *, cfg: _Cfg, q_len: int, kv_len: int,
+    padded_kv: bool, num_heads: int,
+):
+    qi, b, h = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    bq, bk = cfg.block_q, cfg.block_kv
+    n_kv_blocks = k_ref.shape[0] // bk
+    kv_off = kv_len - q_len
+    q_start = qi * bq
+    q_pos = q_start + jnp.arange(bq, dtype=jnp.int32)
+    rows = (q_pos + kv_off)[:, None]
+    len_b = lens_ref[0] if lens_ref is not None else None
+    q = q_ref[...]
+    do = do_ref[...]
+    lse2 = lse_ref[...]
+    delta = delta_ref[...]
+
+    def body(j, dq):
+        kv_start = j * bk
+        cols = (kv_start + jnp.arange(bk, dtype=jnp.int32))[None, :]
+        k = k_ref[pl.ds(kv_start, bk), :]
+        v = v_ref[pl.ds(kv_start, bk), :]
+        p = _probs(cfg, q, k, rows, cols, lse2, kb_ref, tab_ref, kv_start, bk,
+                   kv_len, padded_kv, len_b)
+        dp = _dot(do, v, trans_b=True)
+        if cfg.dropout_rate > 0.0:
+            keep = _dropout(cfg, seed_ref, q_pos[:, None], cols, kv_len,
+                            b * num_heads + h)
+            dp = jnp.where(keep, dp * (1.0 / (1.0 - cfg.dropout_rate)), 0.0)
+        ds = p * (dp - delta[:, None])
+        return dq + _dot(ds.astype(k.dtype), k)
+
+    lo, hi = _kv_range(cfg, q_start, q_start + bq - 1, kv_off, n_kv_blocks, len_b)
+    dq = lax.fori_loop(lo, hi, body, jnp.zeros(q.shape, jnp.float32))
+    dq_ref[...] = (dq * cfg.sm_scale).astype(dq_ref.dtype)
+
+
+def _bwd_kernels(cfg: _Cfg, q, k, v, lens, kbias, seed, o, lse, do):
+    """dq, dk, dv (and the per-key bias gradient) through the two kernels."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bq, bk = cfg.block_q, cfg.block_kv
+    sq_p, skv_p, dp = round_up(sq, bq), round_up(skv, bk), _head_dim(d)
+    delta = jnp.einsum(
+        "bqhd,bqhd->bhq", o.astype(jnp.float32), do.astype(jnp.float32)
+    )
+    # Rows that saw no key have lse = -inf; +inf makes their p exactly 0.
+    lse2 = jnp.where(jnp.isneginf(lse), jnp.inf, lse * LOG2E)
+    qp = _pad_to(_pad_to(q, 1, sq_p), 3, dp)
+    dop = _pad_to(_pad_to(do.astype(q.dtype), 1, sq_p), 3, dp)
+    kp = _pad_to(_pad_to(k, 1, skv_p), 3, dp)
+    vp = _pad_to(_pad_to(v, 1, skv_p), 3, dp)
+    lse_p = _pad_to(lse2, 2, sq_p)
+    delta_p = _pad_to(delta, 2, sq_p)
+
+    lens_in = None if lens is None else lens.astype(jnp.int32).reshape(b, 1)
+    kb_in = None if kbias is None else _pad_to(kbias.astype(jnp.float32), 1, skv_p)
+    seed_in = None if seed is None else seed.astype(jnp.int32).reshape(1)
+    statics = dict(cfg=cfg, q_len=sq, kv_len=skv, padded_kv=skv_p > skv,
+                   num_heads=hq)
+    params = plgpu.CompilerParams(num_warps=_num_warps(dp), num_stages=2)
+
+    # dK / dV: one program per (KV block, batch, q head).
+    full_q = lambda j, bb, h: (bb, 0, h, 0)  # noqa: E731
+    kv_blk = lambda j, bb, h: (bb, j, h // group, 0)  # noqa: E731
+    row_q = lambda j, bb, h: (bb, h, 0)  # noqa: E731
+    dkv_specs = [
+        pl.BlockSpec((None, sq_p, None, dp), full_q),
+        pl.BlockSpec((None, bk, None, dp), kv_blk),
+        pl.BlockSpec((None, bk, None, dp), kv_blk),
+        pl.BlockSpec((None, sq_p, None, dp), full_q),
+        pl.BlockSpec((None, None, sq_p), row_q),
+        pl.BlockSpec((None, None, sq_p), row_q),
+        None if lens is None else pl.BlockSpec((None, 1), lambda j, bb, h: (bb, 0)),
+        None if kbias is None else pl.BlockSpec((None, skv_p), lambda j, bb, h: (bb, 0)),
+        None if seed is None else pl.BlockSpec((1,), lambda j, bb, h: (0,)),
+    ]
+    dkv_dtype = jnp.float32 if group > 1 else k.dtype
+    out_blk = lambda j, bb, h: (bb, j, h, 0)  # noqa: E731
+    out_shape = [
+        jax.ShapeDtypeStruct((b, skv_p, hq, dp), dkv_dtype),
+        jax.ShapeDtypeStruct((b, skv_p, hq, dp), dkv_dtype),
+    ]
+    out_specs = [
+        pl.BlockSpec((None, bk, None, dp), out_blk),
+        pl.BlockSpec((None, bk, None, dp), out_blk),
+    ]
+    if kbias is not None:
+        out_shape.append(jax.ShapeDtypeStruct((b, hq, skv_p), jnp.float32))
+        out_specs.append(pl.BlockSpec((None, None, bk), lambda j, bb, h: (bb, h, j)))
+    outs = pl.pallas_call(
+        functools.partial(_dkv_kernel, **statics),
+        grid=(skv_p // bk, b, hq),
+        in_specs=dkv_specs,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        compiler_params=params,
+        interpret=cfg.interpret,
+        backend="triton",
+        name="pfa_flash_bwd_dkv",
+    )(qp, kp, vp, dop, lse_p, delta_p, lens_in, kb_in, seed_in)
+    dk, dv = outs[0][:, :skv, :, :d], outs[1][:, :skv, :, :d]
+    if group > 1:
+        dk = dk.reshape(b, skv, hkv, group, d).sum(3)
+        dv = dv.reshape(b, skv, hkv, group, d).sum(3)
+    dkb = outs[2].sum(1)[:, :skv] if kbias is not None else None
+
+    # dQ: one program per (q block, batch, q head).
+    q_blk = lambda i, bb, h: (bb, i, h, 0)  # noqa: E731
+    full_kv = lambda i, bb, h: (bb, 0, h // group, 0)  # noqa: E731
+    row_blk = lambda i, bb, h: (bb, h, i)  # noqa: E731
+    dq_specs = [
+        pl.BlockSpec((None, bq, None, dp), q_blk),
+        pl.BlockSpec((None, skv_p, None, dp), full_kv),
+        pl.BlockSpec((None, skv_p, None, dp), full_kv),
+        pl.BlockSpec((None, bq, None, dp), q_blk),
+        pl.BlockSpec((None, None, bq), row_blk),
+        pl.BlockSpec((None, None, bq), row_blk),
+        None if lens is None else pl.BlockSpec((None, 1), lambda i, bb, h: (bb, 0)),
+        None if kbias is None else pl.BlockSpec((None, skv_p), lambda i, bb, h: (bb, 0)),
+        None,
+        None if seed is None else pl.BlockSpec((1,), lambda i, bb, h: (0,)),
+    ]
+    dq = pl.pallas_call(
+        functools.partial(_dq_kernel, **statics),
+        grid=(sq_p // bq, b, hq),
+        in_specs=dq_specs,
+        out_specs=pl.BlockSpec((None, bq, None, dp), q_blk),
+        out_shape=jax.ShapeDtypeStruct((b, sq_p, hq, dp), q.dtype),
+        compiler_params=params,
+        interpret=cfg.interpret,
+        backend="triton",
+        name="pfa_flash_bwd_dq",
+    )(qp, kp, vp, dop, lse_p, delta_p, lens_in, kb_in, None, seed_in)
+    return dq[:, :sq, :, :d], dk.astype(k.dtype), dv.astype(v.dtype), dkb
+
+
+def _xla_bwd(
+    q: jax.Array,  # [B, H, Sq, D]
+    k: jax.Array,  # [B, H, Skv_p, D], KV heads already repeated
     v: jax.Array,
     o: jax.Array,
     lse: jax.Array,  # [B, H, Sq]
@@ -729,14 +570,19 @@ def _flash_bwd(
     block_kv: int,
     tab: Optional[jax.Array] = None,  # (H, W) fp32 rel-bias table
     rel: Tuple[str, bool, int, int] = _NO_REL,
-    window: Optional[Tuple[Optional[int], Optional[int], str]] = None,
-    kv_lens: Optional[jax.Array] = None,  # (B,) int32 valid KV lengths
-    k_bias: Optional[jax.Array] = None,  # (B, Skv padded) fp32 per-key bias
+    window: Optional[Tuple[Optional[int], Optional[int]]] = None,
+    kv_lens: Optional[jax.Array] = None,
+    k_bias: Optional[jax.Array] = None,  # (B, Skv_p)
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[jax.Array] = None,  # (1,) int32
-) -> Tuple[
-    jax.Array, jax.Array, jax.Array, Optional[jax.Array], Optional[jax.Array]
-]:
+    dropout_seed: Optional[jax.Array] = None,
+):
+    """Blockwise backward in plain XLA: a scan over KV blocks.
+
+    Carries the gradient of a T5/ALiBi bias table (a per-bucket sum of
+    score gradients, which a tile kernel would have to reduce across
+    programs). Also the independent check on the backward kernels.
+    Returns (dq, dk, dv, dtab or None, dkbias or None).
+    """
     b, h, sq, d = q.shape
     skv = k.shape[2]
     num_blocks = skv // block_kv
@@ -746,22 +592,22 @@ def _flash_bwd(
     qf = q.astype(jnp.float32)
     dof = do.astype(jnp.float32)
     of = o.astype(jnp.float32)
-    di = jnp.sum(of * dof, axis=-1, keepdims=True)  # [B,H,Sq,1]
-    lse_e = lse[..., None]  # [B,H,Sq,1]
+    di = jnp.sum(of * dof, axis=-1, keepdims=True)
+    lse_e = lse[..., None]
 
     kb = k.astype(jnp.float32).reshape(b, h, num_blocks, block_kv, d)
     vb = v.astype(jnp.float32).reshape(b, h, num_blocks, block_kv, d)
     kb = kb.transpose(2, 0, 1, 3, 4)
     vb = vb.transpose(2, 0, 1, 3, 4)
 
-    row = jax.lax.broadcasted_iota(jnp.int32, (sq, block_kv), 0) + kv_off
+    row = lax.broadcasted_iota(jnp.int32, (sq, block_kv), 0) + kv_off
 
     if k_bias is not None:
         kb_blocks = (
             k_bias.astype(jnp.float32)
             .reshape(b, num_blocks, block_kv)
             .transpose(1, 0, 2)
-        )  # (num_blocks, B, block_kv)
+        )
     else:
         kb_blocks = jnp.zeros((num_blocks, 1, 1), jnp.float32)
 
@@ -769,43 +615,33 @@ def _flash_bwd(
         dq_acc, dtab_acc = carry
         blk_idx, k_blk, v_blk, kb_blk = inputs
         s = jnp.einsum("bhqd,bhkd->bhqk", qf, k_blk) * sm_scale
-        col = (
-            jax.lax.broadcasted_iota(jnp.int32, (sq, block_kv), 1) + blk_idx * block_kv
-        )
-        rel_blk = col - row  # (sq, block_kv)
+        col = lax.broadcasted_iota(jnp.int32, (sq, block_kv), 1) + blk_idx * block_kv
+        rel_blk = col - row
         if rel_kind != "none":
             bias = bias_from_table(
-                rel_kind,
-                tab,
-                rel_blk,
-                bidirectional=rel_bidir,
-                num_buckets=rel_nb,
-                max_distance=rel_maxd,
-            )  # (H, sq, block_kv)
+                rel_kind, tab, rel_blk, bidirectional=rel_bidir,
+                num_buckets=rel_nb, max_distance=rel_maxd,
+            )
             s = s + bias[None]
         if k_bias is not None:
-            s = s + kb_blk[:, None, None, :]  # (B,1,1,block_kv)
+            s = s + kb_blk[:, None, None, :]
         valid = col < kv_true_len
         if causal:
             valid = jnp.logical_and(valid, col <= row)
         if window is not None:
-            lo_, hi_, mode_ = window
-            assert mode_ == "inside"
+            lo_, hi_ = window
             if lo_ is not None:
                 valid = jnp.logical_and(valid, rel_blk >= lo_)
             if hi_ is not None:
                 valid = jnp.logical_and(valid, rel_blk <= hi_)
-        valid = valid[None, None]  # (1,1,sq,block_kv)
+        valid = valid[None, None]
         if kv_lens is not None:
             valid = jnp.logical_and(
                 valid, col[None, None] < kv_lens[:, None, None, None]
-            )  # (B,1,sq,block_kv)
-        # p from saved lse: rows fully masked have lse=-inf -> p=0 via where.
+            )
         p = jnp.where(valid, jnp.exp(s - lse_e), 0.0)
         if dropout_rate > 0.0:
-            # Regenerate the forward's positional dropout mask; it scales
-            # the P.V path only (di = <o, do> already reflects it).
-            qrow = jax.lax.broadcasted_iota(jnp.int32, (sq, block_kv), 0)
+            qrow = lax.broadcasted_iota(jnp.int32, (sq, block_kv), 0)
             bh_idx = (
                 jnp.arange(b, dtype=jnp.int32)[:, None] * h
                 + jnp.arange(h, dtype=jnp.int32)[None, :]
@@ -820,42 +656,36 @@ def _flash_bwd(
         else:
             dv_blk = jnp.einsum("bhqk,bhqd->bhkd", p, dof)
             dp = jnp.einsum("bhqd,bhkd->bhqk", dof, v_blk)
-        dsb = p * (dp - di)  # grad wrt (scores + bias), unscaled
+        dsb = p * (dp - di)
         if rel_kind == "alibi":
             dtab_acc = dtab_acc + jnp.sum(
                 dsb * rel_blk[None, None].astype(jnp.float32), axis=(0, 2, 3)
             ).reshape(h, 1)
         elif rel_kind == "t5":
             bucket = relative_position_bucket(
-                rel_blk,
-                bidirectional=rel_bidir,
-                num_buckets=rel_nb,
+                rel_blk, bidirectional=rel_bidir, num_buckets=rel_nb,
                 max_distance=rel_maxd,
             )
             for b_ in range(rel_nb):
                 dtab_acc = dtab_acc.at[:, b_].add(
-                    jnp.sum(
-                        jnp.where(bucket[None, None] == b_, dsb, 0.0),
-                        axis=(0, 2, 3),
-                    )
+                    jnp.sum(jnp.where(bucket[None, None] == b_, dsb, 0.0),
+                            axis=(0, 2, 3))
                 )
         ds = dsb * sm_scale
         dq_acc = dq_acc + jnp.einsum("bhqk,bhkd->bhqd", ds, k_blk)
         dk_blk = jnp.einsum("bhqk,bhqd->bhkd", ds, qf)
-        dkb_blk = jnp.sum(dsb, axis=(1, 2))  # (B, block_kv) per-key bias grad
+        dkb_blk = jnp.sum(dsb, axis=(1, 2))
         return (dq_acc, dtab_acc), (dk_blk, dv_blk, dkb_blk)
 
     blk_ids = jnp.arange(num_blocks, dtype=jnp.int32)
     dtab0 = jnp.zeros(tab.shape, jnp.float32) if tab is not None else jnp.zeros((h, 1))
-    (dq, dtab), (dk_blocks, dv_blocks, dkb_blocks) = jax.lax.scan(
+    (dq, dtab), (dk_blocks, dv_blocks, dkb_blocks) = lax.scan(
         body, (jnp.zeros_like(qf), dtab0), (blk_ids, kb, vb, kb_blocks)
     )
     dk = dk_blocks.transpose(1, 2, 0, 3, 4).reshape(b, h, skv, d)
     dv = dv_blocks.transpose(1, 2, 0, 3, 4).reshape(b, h, skv, d)
     dkbias = (
-        dkb_blocks.transpose(1, 0, 2).reshape(b, skv)
-        if k_bias is not None
-        else None
+        dkb_blocks.transpose(1, 0, 2).reshape(b, skv) if k_bias is not None else None
     )
     return (
         dq.astype(q.dtype),
@@ -866,632 +696,104 @@ def _flash_bwd(
     )
 
 
+def _rel_bwd(cfg: _Cfg, q, k, v, tab, o, lse, do):
+    """Backward of the rel-bias variant through ``_xla_bwd`` (table grad)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bk = min(512, round_up(skv, 16))
+    skv_p = round_up(skv, bk)
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    kt = _pad_to(t(jnp.repeat(k, group, axis=2) if group > 1 else k), 2, skv_p)
+    vt = _pad_to(t(jnp.repeat(v, group, axis=2) if group > 1 else v), 2, skv_p)
+    dq, dk, dv, dtab, _ = _xla_bwd(
+        t(q), kt, vt, t(o), lse, t(do), sm_scale=cfg.sm_scale,
+        causal=cfg.causal, q_true_len=sq, kv_true_len=skv, block_kv=bk,
+        tab=tab, rel=cfg.rel,
+    )
+    dk, dv = t(dk[:, :, :skv]), t(dv[:, :, :skv])
+    if group > 1:
+        dk = dk.reshape(b, skv, hkv, group, d).sum(3)
+        dv = dv.reshape(b, skv, hkv, group, d).sum(3)
+    return t(dq), dk.astype(k.dtype), dv.astype(v.dtype), dtab.astype(tab.dtype)
+
+
 # ---------------------------------------------------------------------------
-# Public entry point
+# custom_vjp core
 # ---------------------------------------------------------------------------
 
 
-def _choose_block(seq: int, default: int) -> int:
-    """Clamp the tuned default to the (padded) sequence length."""
-    return min(default, max(NUM_LANES, round_up(seq, NUM_LANES)))
+def _int_ct(x):
+    return None if x is None else jnp.zeros(x.shape, jax.dtypes.float0)
 
 
-def _check_blocks(block_q: int, block_kv: int) -> None:
-    """Validate caller-supplied tile sizes up front.
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
+def _flash_core(cfg: _Cfg, q, k, v, lens, kbias, tab, seed):
+    return _fwd(cfg, q, k, v, lens, kbias, tab, seed, need_lse=False)[0]
 
-    The lane-replicated running-stats layout (see ``_flash_fwd_kernel``)
-    tiles (block_q, 128) stat vectors across the kv tile, so block_kv
-    must be an exact multiple of the 128-lane width (and block_q of the
-    sublane granule). Without this check a size like 192 fails deep in
-    Mosaic with an obscure tiling error.
+
+def _flash_core_fwd(cfg, q, k, v, lens, kbias, tab, seed):
+    o, lse = _fwd(cfg, q, k, v, lens, kbias, tab, seed)
+    return o, (q, k, v, lens, kbias, tab, seed, o, lse)
+
+
+def _flash_core_bwd(cfg, res, do):
+    q, k, v, lens, kbias, tab, seed, o, lse = res
+    if cfg.rel[0] != "none":
+        dq, dk, dv, dtab = _rel_bwd(cfg, q, k, v, tab, o, lse, do)
+        return dq, dk, dv, None, None, dtab, None
+    dq, dk, dv, dkb = _bwd_kernels(cfg, q, k, v, lens, kbias, seed, o, lse, do)
+    if kbias is not None:
+        dkb = dkb.astype(kbias.dtype)
+    return dq, dk, dv, _int_ct(lens), dkb, None, _int_ct(seed)
+
+
+_flash_core.defvjp(_flash_core_fwd, _flash_core_bwd)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def _check_block(name: str, val: int) -> None:
+    if val < 16 or val & (val - 1):
+        raise ValueError(
+            f"{name}={val} must be a power of two >= 16 (Triton tile shapes)"
+        )
+
+
+def _blocks(sq: int, skv: int, d: int, block_q, block_kv) -> Tuple[int, int]:
+    """Tile sizes: caller's if given, else 64 rows x 64 keys, clamped to
+    the sequence (a power of two at least 16)."""
+    bq = block_q or min(64 if d <= 64 else 128, max(16, next_pow2(sq)))
+    bk = block_kv or min(64, max(16, next_pow2(skv)))
+    _check_block("block_q", bq)
+    _check_block("block_kv", bk)
+    return bq, bk
+
+
+def cudnn_eligible(q, k, *, causal: bool, features: bool) -> bool:
+    """Whether cuDNN's fused attention computes exactly this call.
+
+    It does for plain (or causal self-) attention in bf16/fp16 with a head
+    dim of at most 128 in multiples of 8. It is not asked for anything
+    else: T5/ALiBi bias (dense only there), positional-hash dropout, the
+    logsumexp in float32, per-key bias, windows and padded lengths
+    (``features``), or causal attention between unequal lengths (cuDNN
+    aligns the diagonal at the start, this module at the end). Tile
+    sizes play no part: they only shape this module's kernel.
     """
-    for name, val in (("block_q", block_q), ("block_kv", block_kv)):
-        if val % NUM_LANES != 0:
-            raise ValueError(
-                f"{name}={val} must be a multiple of {NUM_LANES} "
-                f"(lane-replicated softmax stats tile in 128-lane units)"
-            )
-
-
-@functools.partial(
-    jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6, 7, 8, 9)
-)
-def _flash_attention_core(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    block_kv: int,
-    interpret: bool,
-    window: Optional[Tuple[Optional[int], Optional[int], str]] = None,
-    split: bool = False,
-) -> jax.Array:
-    if split and causal and window is None:
-        o, _ = _causal_split_fwd_impl(
-            q, k, v, sm_scale, block_q, block_kv, interpret
-        )
-        return o
-    if _unrolled_core_ok(q, k, window):
-        from .flash_unrolled import unrolled_fwd_bhsd
-
-        o, _ = unrolled_fwd_bhsd(
-            q, k, v, causal=causal, sm_scale=sm_scale, interpret=interpret
-        )
-        return o
-    # Primal (inference) path: no residuals, no lse HBM traffic.
-    o, _ = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=False, window=window,
-        banded_grid=_bandable(window, causal),
-    )
-    return o
-
-
-def _unrolled_core_ok(q, k, window) -> bool:
-    """Gate for the round-5 unrolled forward inside flash_attention's
-    core (docs/kernels.md "Round 5"): plain square bf16 self-attention
-    with a natively-supported head dim, inside the measured VMEM
-    envelope AT THE COMPOSITION TILE CAP (the call sits inside an
-    arbitrary jitted model, sharing the scoped-VMEM stack — a 16-tile
-    body OOMed inside T5-Large's decoder loop). bf16-only so fp32
-    callers keep the grid kernel's fp32 interpret/compiled numerics
-    unchanged."""
-    from .flash_unrolled import COMPOSED_MAX_TILES, unrolled_supported
-
-    sq, d = q.shape[2], q.shape[3]
+    d = q.shape[-1]
     return (
-        window is None
-        and q.dtype == jnp.bfloat16
-        and sq == k.shape[2]
-        and (d == 64 or d % 128 == 0)
-        and unrolled_supported(sq, d, max_tiles=COMPOSED_MAX_TILES)
+        platform.on_gpu()
+        and not features
+        and q.dtype in (jnp.bfloat16, jnp.float16)
+        and k.dtype == q.dtype
+        and d <= 128
+        and d % 8 == 0
+        and (not causal or q.shape[1] == k.shape[1])
     )
-
-
-def _bandable(window, causal) -> bool:
-    """A finite inside-window supports the diagonal-band grid (skips
-    fetching/visiting out-of-window kv blocks entirely)."""
-    return (
-        window is not None
-        and window[2] == "inside"
-        and window[0] is not None
-        and (causal or window[1] is not None)
-    )
-
-
-def _pad_head_dim(d: int) -> int:
-    """64 is a natively-supported lane width (half-MXU); anything else pads
-    to a 128 multiple. Avoids doubling HBM traffic for D=64 models."""
-    if d == 64 or d % 128 == 0:
-        return d
-    return round_up(d, NUM_LANES)
-
-
-def _flash_core_fwd_impl(
-    q, k, v, sm_scale, causal, block_q, block_kv, interpret, save_residuals=True,
-    tab=None, rel=_NO_REL, window=None, banded_grid=False,
-    kv_lens=None, k_bias=None, causal_mode="full",
-    score_scale=None, out_dtype=None,
-    dropout_rate=0.0, dropout_seed=None,
-    v_scales=None, pv_quant=False, qk_bias=None,
-):
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
-    hkv = k.shape[1]
-    # Pad seq dims to block multiples; head_dim per _pad_head_dim.
-    sq_p = round_up(sq, block_q)
-    skv_p = round_up(skv, block_kv)
-    d_p = _pad_head_dim(d)
-    qp = jnp.pad(q, ((0, 0), (0, 0), (0, sq_p - sq), (0, d_p - d)))
-    kp = jnp.pad(k, ((0, 0), (0, 0), (0, skv_p - skv), (0, d_p - d)))
-    vp = jnp.pad(v, ((0, 0), (0, 0), (0, skv_p - skv), (0, d_p - d)))
-    if k_bias is not None:
-        # (B, Skv) -> (B, 1, Skv_p); padded cols are masked by the static
-        # kv-pad predicate (or the per-row lens), so zero-pad is exact.
-        kb = jnp.pad(k_bias.astype(jnp.float32), ((0, 0), (0, skv_p - skv)))
-        k_bias = kb[:, None, :]
-    if kv_lens is not None:
-        kv_lens = kv_lens.astype(jnp.int32)
-    if v_scales is not None:
-        # (B, Hkv, D) per-column scales -> padded (B, Hkv, 1, D_p); the
-        # zero-padded columns stay zero through the dequant multiply.
-        v_scales = jnp.pad(
-            v_scales.astype(jnp.float32), ((0, 0), (0, 0), (0, d_p - d))
-        )[:, :, None, :]
-    if qk_bias is not None:
-        # Zero-pad: padded kv columns are masked by the static kv-pad
-        # predicate, padded q rows are sliced away below.
-        qk_bias = jnp.pad(
-            qk_bias.astype(jnp.float32),
-            ((0, 0), (0, 0), (0, sq_p - sq), (0, skv_p - skv)),
-        )
-    o, lse = _flash_fwd(
-        qp,
-        kp,
-        vp,
-        sm_scale=sm_scale,
-        causal=causal,
-        q_true_len=sq,
-        kv_true_len=skv,
-        block_q=block_q,
-        block_kv=block_kv,
-        interpret=interpret,
-        save_residuals=save_residuals,
-        group=h // hkv,
-        tab=tab,
-        kv_lens=kv_lens,
-        k_bias=k_bias,
-        rel=rel,
-        window=window,
-        banded_grid=banded_grid,
-        causal_mode=causal_mode,
-        score_scale=score_scale,
-        out_dtype=out_dtype,
-        dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed,
-        v_scales=v_scales,
-        pv_quant=pv_quant,
-        qk_bias=qk_bias,
-    )
-    return o[:, :, :sq, :d], (lse[:, :, :sq] if lse is not None else None)
-
-
-def merge_partial_attention(o1, lse1, o2, lse2):
-    """Merge two normalized partial-attention results by logsumexp.
-
-    Each part is (output (..., D) normalized within its own key set,
-    lse (...)) with lse = -inf and a zero output row where the part saw no
-    valid keys. The same recurrence merges ring-attention shards
-    (parallel/ring.py) and the T5 far/band kernel split.
-    """
-    o1f = o1.astype(jnp.float32)
-    o2f = o2.astype(jnp.float32)
-    m = jnp.maximum(lse1, lse2)
-    m_safe = jnp.where(jnp.isneginf(m), 0.0, m)
-    w1 = jnp.where(jnp.isneginf(lse1), 0.0, jnp.exp(lse1 - m_safe))
-    w2 = jnp.where(jnp.isneginf(lse2), 0.0, jnp.exp(lse2 - m_safe))
-    denom = w1 + w2
-    safe = jnp.where(denom == 0.0, 1.0, denom)
-    o = (o1f * w1[..., None] + o2f * w2[..., None]) / safe[..., None]
-    lse = jnp.where(denom == 0.0, -jnp.inf, m_safe + jnp.log(safe))
-    return o, lse
-
-
-def _causal_split_fwd_impl(
-    q, k, v, sm_scale, block_q, block_kv, interpret
-):
-    """Causal forward as an interior/diagonal kernel split.
-
-    Single-pass causal masks EVERY visited tile (iota pair + compare +
-    select on the VPU) and wastes half the diagonal tile's matmul; at
-    short S the diagonal tiles are a large fraction of the grid (40% of
-    visited tiles at S=2048, bq=bkv=512). The split runs:
-
-    * interior pass — tiles strictly below the diagonal, with NO
-      per-element mask work at all,
-    * band pass — the <= bq/bkv+1 diagonal-straddling tiles per q block
-      on a banded grid with narrow kv tiles (less masked-half waste),
-
-    merged by logsumexp (same machinery as the T5 far/band split).
-    """
-    o_i, lse_i = _flash_core_fwd_impl(
-        q, k, v, sm_scale, True, block_q, block_kv, interpret,
-        save_residuals=True, causal_mode="interior",
-    )
-    bkv_b = min(block_kv, 256)
-    o_b, lse_b = _flash_core_fwd_impl(
-        q, k, v, sm_scale, True, block_q, bkv_b, interpret,
-        save_residuals=True, causal_mode="band",
-    )
-    o, lse = merge_partial_attention(o_i, lse_i, o_b, lse_b)
-    return o.astype(q.dtype), lse
-
-
-def _t5_core_fwd_impl(
-    q, k, v, sm_scale, causal, block_q, block_kv, interpret, tab, rel
-):
-    """T5 rel-bias forward as a far/band kernel split.
-
-    The saturated (far) region runs the full flash kernel with a
-    two-constant bias; the narrow |rel| < max_distance band runs a
-    banded-grid pass with the exact per-element table lookup; the parts
-    merge by logsumexp. Measured on v5e this beats any single-kernel
-    per-tile predication scheme (lax.cond lowers to execute-both; a
-    pl.when-guarded bias scratch serializes the Mosaic pipeline).
-    """
-    maxd = rel[3]
-    rel_far = ("t5far",) + rel[1:]
-    rel_band = ("t5band",) + rel[1:]
-    far_win = (-maxd, None if causal else maxd, "outside")
-    band_win = (-(maxd - 1), None if causal else (maxd - 1), "inside")
-    o_far, lse_far = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=True, tab=tab, rel=rel_far, window=far_win,
-    )
-    # Tight blocks for the band pass: its cost is (executed tile area) x
-    # (table-lookup select chain), so narrow kv tiles matter more than
-    # matmul efficiency here.
-    bq_b = min(block_q, 512)
-    bkv_b = min(block_kv, 256)
-    o_band, lse_band = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, bq_b, bkv_b, interpret,
-        save_residuals=True, tab=tab, rel=rel_band, window=band_win,
-        banded_grid=True,
-    )
-    o, lse = merge_partial_attention(o_far, lse_far, o_band, lse_band)
-    return o.astype(q.dtype), lse
-
-
-def _flash_core_fwd(
-    q, k, v, sm_scale, causal, block_q, block_kv, interpret, window=None,
-    split=False,
-):
-    if split and causal and window is None:
-        o, lse = _causal_split_fwd_impl(
-            q, k, v, sm_scale, block_q, block_kv, interpret
-        )
-        return o, (q, k, v, o, lse)
-    if _unrolled_core_ok(q, k, window):
-        from .flash_unrolled import unrolled_fwd_bhsd
-
-        o, lse = unrolled_fwd_bhsd(
-            q, k, v, causal=causal, sm_scale=sm_scale, save_lse=True,
-            interpret=interpret,
-        )
-        return o, (q, k, v, o, lse)
-    o, lse = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=True, window=window,
-        banded_grid=_bandable(window, causal),
-    )
-    return o, (q, k, v, o, lse)
-
-
-def _flash_core_bwd(
-    sm_scale, causal, block_q, block_kv, interpret, window, split, residuals, do
-):
-    q, k, v, o, lse = residuals
-    b, h, _, d = q.shape
-    hkv = k.shape[1]
-    group = h // hkv
-    skv = k.shape[2]
-    if group > 1:
-        # The grad path materializes repeated KV (training only); the
-        # primal/inference path never does (native GQA index maps).
-        k_in = jnp.repeat(k, group, axis=1)
-        v_in = jnp.repeat(v, group, axis=1)
-    else:
-        k_in, v_in = k, v
-    if _use_pallas_bwd():
-        from .flash_bwd import (
-            bwd_unrolled_supported,
-            flash_attention_bwd_pallas,
-            flash_attention_bwd_unrolled,
-        )
-
-        sq_ = q.shape[2]
-        if (
-            window is None
-            and sq_ == skv
-            and bwd_unrolled_supported(sq_, d, q.dtype.itemsize)
-        ):
-            # Round-5 unrolled backward: 1.19-1.36x the grid kernels on
-            # plain square self-attention (docs/kernels.md "Round 5").
-            dq, dk, dv = flash_attention_bwd_unrolled(
-                q,
-                k_in,
-                v_in,
-                o,
-                lse,
-                do,
-                sm_scale=sm_scale,
-                causal=causal,
-                interpret=bool(resolve_interpret(interpret)),
-            )
-        else:
-            dq, dk, dv = flash_attention_bwd_pallas(
-                q,
-                k_in,
-                v_in,
-                o,
-                lse,
-                do,
-                sm_scale=sm_scale,
-                causal=causal,
-                interpret=interpret,
-                window=window,
-            )
-    else:
-        skv_p = round_up(skv, block_kv)
-        kp = jnp.pad(k_in, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-        vp = jnp.pad(v_in, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-        dq, dk, dv, _, _ = _flash_bwd(
-            q,
-            kp,
-            vp,
-            o,
-            lse,
-            do,
-            sm_scale=sm_scale,
-            causal=causal,
-            q_true_len=q.shape[2],
-            kv_true_len=skv,
-            block_kv=block_kv,
-            window=window,
-        )
-        dk = dk[:, :, :skv]
-        dv = dv[:, :, :skv]
-    if group > 1:
-        dk = dk.reshape(b, hkv, group, skv, d).sum(2)
-        dv = dv.reshape(b, hkv, group, skv, d).sum(2)
-    return dq, dk.astype(k.dtype), dv.astype(v.dtype)
-
-
-def _use_pallas_bwd() -> bool:
-    """Pallas backward kernels by default; PFA_XLA_BWD=1 forces the
-    blockwise-XLA fallback (kept for rel-bias table grads, which always
-    take it)."""
-    import os
-
-    return os.environ.get("PFA_XLA_BWD", "0") != "1"
-
-
-_flash_attention_core.defvjp(_flash_core_fwd, _flash_core_bwd)
-
-
-# --- masked variant: per-row KV lengths + per-key additive bias ----------
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9))
-def _flash_attention_core_masked(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    kv_lens: jax.Array,  # (B,) int32
-    k_bias: jax.Array,  # (B, Skv) fp32
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    block_kv: int,
-    interpret: bool,
-) -> jax.Array:
-    o, _ = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=False, kv_lens=kv_lens, k_bias=k_bias,
-    )
-    return o
-
-
-def _flash_core_masked_fwd(
-    q, k, v, kv_lens, k_bias, sm_scale, causal, block_q, block_kv, interpret
-):
-    o, lse = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=True, kv_lens=kv_lens, k_bias=k_bias,
-    )
-    return o, (q, k, v, kv_lens, k_bias, o, lse)
-
-
-def _flash_core_masked_bwd(
-    sm_scale, causal, block_q, block_kv, interpret, residuals, do
-):
-    q, k, v, kv_lens, k_bias, o, lse = residuals
-    b, h, _, d = q.shape
-    hkv = k.shape[1]
-    group = h // hkv
-    skv = k.shape[2]
-    skv_p = round_up(skv, block_kv)
-    kp = jnp.pad(k, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-    vp = jnp.pad(v, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-    kbp = jnp.pad(k_bias.astype(jnp.float32), ((0, 0), (0, skv_p - skv)))
-    if group > 1:
-        kp = jnp.repeat(kp, group, axis=1)
-        vp = jnp.repeat(vp, group, axis=1)
-    dq, dk, dv, _, dkbias = _flash_bwd(
-        q,
-        kp,
-        vp,
-        o,
-        lse,
-        do,
-        sm_scale=sm_scale,
-        causal=causal,
-        q_true_len=q.shape[2],
-        kv_true_len=skv,
-        block_kv=block_kv,
-        kv_lens=kv_lens,
-        k_bias=kbp,
-    )
-    dk = dk[:, :, :skv]
-    dv = dv[:, :, :skv]
-    if group > 1:
-        dk = dk.reshape(b, hkv, group, skv, d).sum(2)
-        dv = dv.reshape(b, hkv, group, skv, d).sum(2)
-    # Integer lengths are non-differentiable: float0 zero tangent.
-    dlens = jnp.zeros(kv_lens.shape, dtype=jax.dtypes.float0)
-    return (
-        dq,
-        dk.astype(k.dtype),
-        dv.astype(v.dtype),
-        dlens,
-        dkbias[:, :skv].astype(k_bias.dtype),
-    )
-
-
-_flash_attention_core_masked.defvjp(_flash_core_masked_fwd, _flash_core_masked_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9))
-def _flash_attention_core_dropout(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    seed: jax.Array,  # (1,) int32
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    block_kv: int,
-    interpret: bool,
-    dropout_rate: float,
-) -> jax.Array:
-    o, _ = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=False, dropout_rate=dropout_rate, dropout_seed=seed,
-    )
-    return o
-
-
-def _flash_core_dropout_fwd(
-    q, k, v, seed, sm_scale, causal, block_q, block_kv, interpret, dropout_rate
-):
-    o, lse = _flash_core_fwd_impl(
-        q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-        save_residuals=True, dropout_rate=dropout_rate, dropout_seed=seed,
-    )
-    return o, (q, k, v, seed, o, lse)
-
-
-def _flash_core_dropout_bwd(
-    sm_scale, causal, block_q, block_kv, interpret, dropout_rate, residuals, do
-):
-    q, k, v, seed, o, lse = residuals
-    b, h, _, d = q.shape
-    hkv = k.shape[1]
-    group = h // hkv
-    skv = k.shape[2]
-    if _use_pallas_bwd():
-        from .flash_bwd import flash_attention_bwd_pallas
-
-        k_in = jnp.repeat(k, group, axis=1) if group > 1 else k
-        v_in = jnp.repeat(v, group, axis=1) if group > 1 else v
-        dq, dk, dv = flash_attention_bwd_pallas(
-            q,
-            k_in,
-            v_in,
-            o,
-            lse,
-            do,
-            sm_scale=sm_scale,
-            causal=causal,
-            interpret=interpret,
-            dropout_rate=dropout_rate,
-            dropout_seed=seed,
-        )
-    else:
-        skv_p = round_up(skv, block_kv)
-        kp = jnp.pad(k, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-        vp = jnp.pad(v, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-        if group > 1:
-            kp = jnp.repeat(kp, group, axis=1)
-            vp = jnp.repeat(vp, group, axis=1)
-        dq, dk, dv, _, _ = _flash_bwd(
-            q,
-            kp,
-            vp,
-            o,
-            lse,
-            do,
-            sm_scale=sm_scale,
-            causal=causal,
-            q_true_len=q.shape[2],
-            kv_true_len=skv,
-            block_kv=block_kv,
-            dropout_rate=dropout_rate,
-            dropout_seed=seed,
-        )
-        dk = dk[:, :, :skv]
-        dv = dv[:, :, :skv]
-    if group > 1:
-        dk = dk.reshape(b, hkv, group, skv, d).sum(2)
-        dv = dv.reshape(b, hkv, group, skv, d).sum(2)
-    dseed = jnp.zeros(seed.shape, dtype=jax.dtypes.float0)
-    return dq, dk.astype(k.dtype), dv.astype(v.dtype), dseed
-
-
-_flash_attention_core_dropout.defvjp(
-    _flash_core_dropout_fwd, _flash_core_dropout_bwd
-)
-
-
-# --- rel-bias variant: the (H, W) table is a 4th differentiable input ----
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9))
-def _flash_attention_core_rel(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    tab: jax.Array,  # (H, W) fp32
-    rel: Tuple[str, bool, int, int],
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    block_kv: int,
-    interpret: bool,
-) -> jax.Array:
-    if rel[0] == "t5":
-        o, _ = _t5_core_fwd_impl(
-            q, k, v, sm_scale, causal, block_q, block_kv, interpret, tab, rel
-        )
-    else:
-        o, _ = _flash_core_fwd_impl(
-            q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-            save_residuals=False, tab=tab, rel=rel,
-        )
-    return o
-
-
-def _flash_core_rel_fwd(q, k, v, tab, rel, sm_scale, causal, block_q, block_kv, interpret):
-    if rel[0] == "t5":
-        o, lse = _t5_core_fwd_impl(
-            q, k, v, sm_scale, causal, block_q, block_kv, interpret, tab, rel
-        )
-    else:
-        o, lse = _flash_core_fwd_impl(
-            q, k, v, sm_scale, causal, block_q, block_kv, interpret,
-            save_residuals=True, tab=tab, rel=rel,
-        )
-    return o, (q, k, v, tab, o, lse)
-
-
-def _flash_core_rel_bwd(rel, sm_scale, causal, block_q, block_kv, interpret, residuals, do):
-    q, k, v, tab, o, lse = residuals
-    b, h, _, d = q.shape
-    hkv = k.shape[1]
-    group = h // hkv
-    skv = k.shape[2]
-    skv_p = round_up(skv, block_kv)
-    kp = jnp.pad(k, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-    vp = jnp.pad(v, ((0, 0), (0, 0), (0, skv_p - skv), (0, 0)))
-    if group > 1:
-        kp = jnp.repeat(kp, group, axis=1)
-        vp = jnp.repeat(vp, group, axis=1)
-    dq, dk, dv, dtab, _ = _flash_bwd(
-        q,
-        kp,
-        vp,
-        o,
-        lse,
-        do,
-        sm_scale=sm_scale,
-        causal=causal,
-        q_true_len=q.shape[2],
-        kv_true_len=skv,
-        block_kv=block_kv,
-        tab=tab,
-        rel=rel,
-    )
-    dk = dk[:, :, :skv]
-    dv = dv[:, :, :skv]
-    if group > 1:
-        dk = dk.reshape(b, hkv, group, skv, d).sum(2)
-        dv = dv.reshape(b, hkv, group, skv, d).sum(2)
-    return dq, dk.astype(k.dtype), dv.astype(v.dtype), dtab.astype(tab.dtype)
-
-
-_flash_attention_core_rel.defvjp(_flash_core_rel_fwd, _flash_core_rel_bwd)
 
 
 def flash_attention(
@@ -1509,73 +811,52 @@ def flash_attention(
     kv_lens: Optional[jax.Array] = None,
     k_bias: Optional[jax.Array] = None,
     attn_bias: Optional[jax.Array] = None,
-    causal_split: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[jax.Array] = None,
+    implementation: Optional[str] = None,
 ) -> jax.Array:
-    """Flash attention on TPU via Pallas.
+    """Flash attention (differentiable except with ``attn_bias``).
 
     Args:
       q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) with Hq % Hkv == 0 (GQA).
-      causal: apply causal masking (sequence-end aligned when Sq != Skv).
+      causal: causal mask, aligned at the sequence end when Sq != Skv.
       sm_scale: score scale, default 1/sqrt(D).
-      block_q / block_kv: kernel tile sizes (multiples of 128); autotuned
-        defaults otherwise.
-      interpret: force Pallas interpreter mode (auto on non-TPU backends).
-      kv_lens: optional (B,) int32 per-sequence valid KV length —
-        key-padding made kernel-native (the in-kernel form of the
-        reference's attention_mask, reference flash_attention_3.py:150,
-        165-175). KV blocks past a row's length are skipped dynamically,
-        so a padded batch pays for its real tokens only. Differentiable
-        in q/k/v.
-      k_bias: optional (B, Skv) fp32 additive per-key score bias,
-        broadcast over heads and query rows (0 = attend; use
-        DEFAULT_MASK_VALUE entries for arbitrary — including
-        non-contiguous — key-padding patterns). Differentiable, incl.
-        w.r.t. the bias itself. May combine with kv_lens (lens as the
-        tile-skip upper bound, bias as the exact pattern).
-      attn_bias: optional dense (B, Hb, Sq, Skv) fp32 additive score
-        bias with Hb in {1, Hq} — arbitrary 2-D masks (0 = attend,
-        DEFAULT_MASK_VALUE = ignore) or real biases, streamed as
-        (block_q, block_kv) HBM tiles inside the kernel (the reference
-        applies any-shape attention_mask inside its tile loop,
-        flash_attention_3.py:150,165-175). Inference-only (no VJP);
-        cannot combine with kv_lens/k_bias/rel_bias/window/dropout.
-      rel_bias: optional structured relative-position bias
-        (``T5RelBias`` or ``ALiBi``, see ops/rel_bias.py) computed
-        in-kernel from iota — no dense (H, Sq, Skv) bias tensor exists
-        anywhere, which is what makes T5-style models tractable at long
-        sequence lengths. Differentiable w.r.t. the bias table/slopes.
-      window: optional (lo, hi) bounds on rel = col - row (inclusive;
-        None = unbounded on that side): sliding-window / local attention.
-        ``window=(-w + 1, 0)`` with ``causal=True`` is Mistral-style
-        local attention with window size ``w``. A finite window runs on a
-        diagonal-band grid — out-of-window kv blocks are never visited,
-        so cost scales with S*w, not S^2. Differentiable.
-      causal_split: run causal as an interior/diagonal two-kernel split
-        (mask-free interior tiles + banded diagonal, logsumexp merge).
-        Measured SLOWER on v5e at every geometry tried (S=2048: 1.29 ms
-        vs 0.54 single-pass; S=8192: 2.14 vs 1.64 — the extra launch,
-        lse traffic, and merge outweigh the mask savings), so the
-        default stays the single-pass kernel; the option exists for
-        hardware where the VPU/MXU balance differs.
+      block_q / block_kv: kernel tile sizes (powers of two >= 16); chosen
+        here otherwise. They apply only when the call runs on this
+        module's kernel.
+      interpret: run the kernel in the Pallas interpreter (the CPU's
+        mode; refused on the GPU). Setting it asks for the kernel.
+      kv_lens: optional (B,) int32 valid KV length per sequence. Blocks
+        past it are never loaded.
+      k_bias: optional (B, Skv) fp32 additive per-key bias (0 = attend,
+        DEFAULT_MASK_VALUE = ignore), differentiable. May combine with
+        kv_lens.
+      attn_bias: optional dense (B, 1|Hq, Sq, Skv) fp32 additive bias,
+        streamed in tiles. Forward only; combines with ``causal`` only.
+      rel_bias: ``T5RelBias`` or ``ALiBi`` (ops/rel_bias.py), rebuilt from
+        iota inside the kernel; differentiable in its table.
+      window: (lo, hi) bounds on rel = col - row, inclusive, None =
+        unbounded: ``window=(-w + 1, 0)`` with ``causal=True`` is a
+        sliding window of w keys. Blocks outside are never loaded.
+      dropout_rate / dropout_seed: attention-probability dropout with the
+        positional hash of ``pallas_utils.dropout_keep``.
+      implementation: None chooses by what the call computes: cuDNN
+        where ``cudnn_eligible`` holds, this module's kernel otherwise.
+        "pallas" always runs the kernel (benchmarks, tile tuning).
 
     Returns:
-      (B, Sq, Hq, D) attention output in q.dtype. Differentiable.
+      (B, Sq, Hq, D) in q.dtype.
     """
+    if implementation not in (None, "pallas"):
+        raise ValueError(
+            f"implementation must be None or 'pallas', got {implementation!r}"
+        )
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"Hq {hq} not divisible by Hkv {hkv} (GQA)")
-
     scale = sm_scale if sm_scale is not None else d ** -0.5
     if dropout_rate > 0.0:
-        # Attention-probability dropout (training): in-kernel positional
-        # mask — see pallas_utils.dropout_keep. The reference applies
-        # dropout to attention weights inside its kernel path
-        # (flash_attention_3.py:43,174-175); here no (Sq, Skv) mask
-        # tensor ever exists in HBM. Not combinable with the masked/
-        # biased/windowed variants (those paths are inference surfaces).
         if not 0.0 < dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in (0, 1), got {dropout_rate}")
         if kv_lens is not None or k_bias is not None or rel_bias is not None or window is not None:
@@ -1585,27 +866,10 @@ def flash_attention(
             )
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed")
-    # Measured sweet spot on v5e (dispatch-overhead-free linear-fit sweeps
-    # at S in 2K..8K, D=64/128, after the lane-replicated-stats rewrite):
-    # 512 x 512 wins at every geometry tried (e.g. B4xS2048xH12xD64
-    # causal: 0.514 ms vs 0.584 at 1024x512 and 0.612 at 1024x1024; the
-    # pre-rewrite optimum 1024x1024 only won because column-vector
-    # lane-broadcast overhead used to grow with grid steps).
-    bq = block_q or _choose_block(sq, 512)
-    bkv = block_kv or _choose_block(skv, 512)
-    _check_blocks(bq, bkv)
-    interp = resolve_interpret(interpret)
-
-    qt = q.transpose(0, 2, 1, 3)
-    kt = k.transpose(0, 2, 1, 3)
-    vt = v.transpose(0, 2, 1, 3)
     if attn_bias is not None:
         if (
-            kv_lens is not None
-            or k_bias is not None
-            or rel_bias is not None
-            or window is not None
-            or dropout_rate > 0.0
+            kv_lens is not None or k_bias is not None or rel_bias is not None
+            or window is not None or dropout_rate > 0.0
         ):
             raise ValueError(
                 "attn_bias cannot be combined with kv_lens/k_bias/"
@@ -1618,63 +882,51 @@ def flash_attention(
                 f"attn_bias must be (B, 1|Hq, Sq, Skv) = ({b}, 1|{hq}, "
                 f"{sq}, {skv}), got {attn_bias.shape}"
             )
-        o, _ = _flash_core_fwd_impl(
-            qt, kt, vt, scale, causal, bq, bkv, interp,
-            save_residuals=False, qk_bias=attn_bias,
+    if (kv_lens is not None or k_bias is not None) and (
+        rel_bias is not None or window is not None
+    ):
+        raise ValueError("kv_lens/k_bias cannot be combined with rel_bias or window")
+    if window is not None and rel_bias is not None:
+        raise ValueError("window cannot be combined with rel_bias")
+    if kv_lens is not None and kv_lens.shape != (b,):
+        raise ValueError(f"kv_lens must be shape ({b},), got {kv_lens.shape}")
+    if k_bias is not None and k_bias.shape != (b, skv):
+        raise ValueError(f"k_bias must be shape ({b}, {skv}), got {k_bias.shape}")
+    if rel_bias is not None and rel_bias.num_heads != hq:
+        raise ValueError(f"rel_bias heads {rel_bias.num_heads} != q heads {hq}")
+
+    features = any(
+        x is not None for x in (rel_bias, window, kv_lens, k_bias, attn_bias)
+    ) or dropout_rate > 0.0
+    if (
+        implementation is None
+        and interpret is None
+        and cudnn_eligible(q, k, causal=causal, features=features)
+    ):
+        return jax.nn.dot_product_attention(
+            q, k, v, scale=scale, is_causal=causal, implementation="cudnn"
         )
-        return o.transpose(0, 2, 1, 3)
-    if kv_lens is not None or k_bias is not None:
-        if rel_bias is not None or window is not None:
-            raise ValueError(
-                "kv_lens/k_bias cannot be combined with rel_bias or window"
-            )
-        if kv_lens is not None and kv_lens.shape != (b,):
-            raise ValueError(f"kv_lens must be shape ({b},), got {kv_lens.shape}")
-        if k_bias is not None and k_bias.shape != (b, skv):
-            raise ValueError(
-                f"k_bias must be shape ({b}, {skv}), got {k_bias.shape}"
-            )
-        lens = (
-            kv_lens.astype(jnp.int32)
-            if kv_lens is not None
-            else jnp.full((b,), skv, jnp.int32)
-        )
-        kbias = (
-            k_bias.astype(jnp.float32)
-            if k_bias is not None
-            else jnp.zeros((b, skv), jnp.float32)
-        )
-        o = _flash_attention_core_masked(
-            qt, kt, vt, lens, kbias, scale, causal, bq, bkv, interp
-        )
-        return o.transpose(0, 2, 1, 3)
-    win3 = None
-    if window is not None:
-        if rel_bias is not None:
-            raise ValueError("window cannot be combined with rel_bias")
-        win3 = (window[0], window[1], "inside")
+
+    bq, bk = _blocks(sq, skv, d, block_q, block_kv)
+    tab, rel = None, _NO_REL
     if rel_bias is not None:
-        if rel_bias.num_heads != hq:
-            raise ValueError(
-                f"rel_bias heads {rel_bias.num_heads} != q heads {hq}"
-            )
-        kind, tab = bias_table(rel_bias)
+        _, tab = bias_table(rel_bias)
         rel = rel_statics(rel_bias)
-        o = _flash_attention_core_rel(
-            qt, kt, vt, tab, rel, scale, causal, bq, bkv, interp
-        )
-    elif dropout_rate > 0.0:
-        seed_arr = jnp.asarray(dropout_seed, jnp.int32).reshape(1)
-        o = _flash_attention_core_dropout(
-            qt, kt, vt, seed_arr, scale, causal, bq, bkv, interp,
-            float(dropout_rate),
-        )
-    else:
-        o = _flash_attention_core(
-            qt, kt, vt, scale, causal, bq, bkv, interp, win3,
-            bool(causal_split and causal and win3 is None),
-        )
-    return o.transpose(0, 2, 1, 3)
+    cfg = _Cfg(
+        causal=bool(causal), sm_scale=float(scale),
+        window=None if window is None else (window[0], window[1]),
+        rel=rel, dropout_rate=float(dropout_rate), block_q=bq, block_kv=bk,
+        interpret=resolve_interpret(interpret),
+    )
+    if attn_bias is not None:
+        return _fwd(cfg, q, k, v, None, None, None, None, dense_bias=attn_bias,
+                    need_lse=False)[0]
+    seed = (
+        jnp.asarray(dropout_seed, jnp.int32).reshape(1)
+        if dropout_rate > 0.0 else None
+    )
+    kbias = None if k_bias is None else k_bias.astype(jnp.float32)
+    return _flash_core(cfg, q, k, v, kv_lens, kbias, tab, seed)
 
 
 def flash_attention_with_lse(
@@ -1693,12 +945,9 @@ def flash_attention_with_lse(
     """Flash attention also returning the per-row logsumexp.
 
     Returns (output (B, Sq, Hq, D), lse (B, Hq, Sq) fp32). The lse makes
-    partial attention results mergeable across KV shards — the primitive
-    ring attention is built from (fully-masked rows have lse = -inf and a
-    zero output row, so they drop out of the merge). ``kv_lens`` (B,)
-    int32 / ``k_bias`` (B, Skv) carry in-kernel key padding so ring
-    shards of a padded batch stay mergeable (lens past the shard end
-    clip to 0 → lse = -inf rows). Forward-only.
+    partial results mergeable across KV shards (ring attention): a row
+    that saw no valid key has lse = -inf and a zero output row, so it
+    drops out of the merge. Forward only.
     """
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -1707,58 +956,33 @@ def flash_attention_with_lse(
     if kv_lens is not None and kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be shape ({b},), got {kv_lens.shape}")
     if k_bias is not None and k_bias.shape != (b, skv):
-        raise ValueError(
-            f"k_bias must be shape ({b}, {skv}), got {k_bias.shape}"
-        )
+        raise ValueError(f"k_bias must be shape ({b}, {skv}), got {k_bias.shape}")
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    bq = block_q or _choose_block(sq, 512)
-    bkv = block_kv or _choose_block(skv, 512)
-    _check_blocks(bq, bkv)
-    interp = resolve_interpret(interpret)
-    qt = q.transpose(0, 2, 1, 3)
-    kt = k.transpose(0, 2, 1, 3)
-    vt = v.transpose(0, 2, 1, 3)
-    if _unrolled_core_ok(qt, kt, None):
-        # Round-5 unrolled forward with lse — ring attention's local
-        # flash bodies (8K shards of a 64K ring divide 512) ride it too.
-        # Key padding / per-key bias fold into the kernel's bias stream
-        # (exact: masked keys underflow to p = 0 against any finite row
-        # max, and shards with zero valid keys never reach this call —
-        # the ring's idx-skip handles them).
-        from .flash_unrolled import unrolled_fwd_bhsd
-
-        bias = None
-        if k_bias is not None:
-            bias = k_bias.astype(jnp.float32)
-        if kv_lens is not None:
-            keep = (
-                jnp.arange(skv, dtype=jnp.int32)[None] < kv_lens[:, None]
-            )
-            bias = jnp.where(
-                keep, 0.0 if bias is None else bias, DEFAULT_MASK_VALUE
-            ).astype(jnp.float32)
-        o, lse = unrolled_fwd_bhsd(
-            qt, kt, vt, causal=causal, sm_scale=scale, save_lse=True,
-            k_bias=bias, interpret=interp,
-        )
-        if kv_lens is not None:
-            # Zero-valid-key sequences: the finite-mask bias form yields
-            # a finite (garbage) lse; restore the grid kernel's exact
-            # contract (lse = -inf, o = 0) so ring merges drop the rows.
-            empty = (kv_lens == 0)[:, None, None]
-            lse = jnp.where(empty, -jnp.inf, lse)
-            o = jnp.where(empty[..., None], 0.0, o).astype(o.dtype)
-        return o.transpose(0, 2, 1, 3), lse
-    o, lse = _flash_core_fwd_impl(
-        qt,
-        kt,
-        vt,
-        scale,
-        causal,
-        bq,
-        bkv,
-        interp,
-        kv_lens=kv_lens,
-        k_bias=k_bias,
+    bq, bk = _blocks(sq, skv, d, block_q, block_kv)
+    cfg = _Cfg(
+        causal=bool(causal), sm_scale=float(scale), window=None, rel=_NO_REL,
+        dropout_rate=0.0, block_q=bq, block_kv=bk,
+        interpret=resolve_interpret(interpret),
     )
-    return o.transpose(0, 2, 1, 3), lse
+    kbias = None if k_bias is None else k_bias.astype(jnp.float32)
+    return _fwd(cfg, q, k, v, kv_lens, kbias, None, None)
+
+
+def merge_partial_attention(o1, lse1, o2, lse2):
+    """Merge two normalized partial-attention results by logsumexp.
+
+    Each part is (output (..., D) normalized within its own key set,
+    lse (...)) with lse = -inf and a zero output row where the part saw no
+    valid keys. The same recurrence merges ring-attention shards.
+    """
+    o1f = o1.astype(jnp.float32)
+    o2f = o2.astype(jnp.float32)
+    m = jnp.maximum(lse1, lse2)
+    m_safe = jnp.where(jnp.isneginf(m), 0.0, m)
+    w1 = jnp.where(jnp.isneginf(lse1), 0.0, jnp.exp(lse1 - m_safe))
+    w2 = jnp.where(jnp.isneginf(lse2), 0.0, jnp.exp(lse2 - m_safe))
+    denom = w1 + w2
+    safe = jnp.where(denom == 0.0, 1.0, denom)
+    o = (o1f * w1[..., None] + o2f * w2[..., None]) / safe[..., None]
+    lse = jnp.where(denom == 0.0, -jnp.inf, m_safe + jnp.log(safe))
+    return o, lse

@@ -1,44 +1,20 @@
-"""Pallas TPU fused nonlinearity kernels.
+"""Softmax, LayerNorm, RMSNorm and activations in plain ``jnp``.
 
-The TPU-native rebirth of the reference's optical nonlinearity layer
-(reference photonic/optical_kernels/nonlinearity.py:24-457):
-
-* ``OpticalSoftmax`` (poly-exp approximation + WDM sum, reference
-  nonlinearity.py:61-170) -> :func:`fused_softmax`, a tiled row-softmax
-  Pallas kernel with exact ``exp`` on the VPU (the approximation existed
-  only because the simulated analog device could not exponentiate; the
-  VPU can).
-* ``OpticalLayerNorm`` (reference nonlinearity.py:334-382) ->
-  :func:`fused_layer_norm` / :func:`fused_rms_norm`, row-reduction
-  kernels that keep the activation in VMEM for the whole
-  normalize-scale-shift chain (one HBM read + one write per row).
-* ``OpticalActivations`` relu/gelu (reference nonlinearity.py:243-331)
-  -> plain ``jnp`` lambdas: on TPU, XLA fuses pure elementwise ops into
-  their producer for free, so a hand-written kernel would only *add*
-  HBM traffic. The dispatcher keeps the reference's API surface.
-* ``OpticalNonlinearityKernel.apply_nonlinearity`` dispatcher (reference
-  nonlinearity.py:385-423) -> :func:`apply_nonlinearity` +
-  :class:`NonlinearityType`.
-
-All kernels run compiled on TPU and fall back to interpreter mode on CPU
-(the test backend). Shapes: input ``(..., D)``; leading dims are fused
-into a row axis and tiled ``block_rows`` at a time.
+The reference's optical nonlinearity layer (reference
+photonic/optical_kernels/nonlinearity.py:24-457) approximated these
+because its simulated analog device could not exponentiate. Here they are
+the exact functions with float32 statistics. XLA fuses each into one pass
+over the rows on the GPU, so no hand-written kernel stands behind them.
+The dispatcher keeps the reference's API surface.
 """
 
 from __future__ import annotations
 
 import enum
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .pallas_utils import NUM_LANES, cdiv, resolve_interpret, round_up
-
-_NEG_INF = -0.7 * float(jnp.finfo(jnp.float32).max)
 
 
 class NonlinearityType(enum.Enum):
@@ -51,230 +27,9 @@ class NonlinearityType(enum.Enum):
     RMS_NORM = "rms_norm"
 
 
-def _pad_cols(x: jax.Array, d_pad: int) -> jax.Array:
-    d = x.shape[-1]
-    if d == d_pad:
-        return x
-    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, d_pad - d)])
-
-
-def _row_view(x: jax.Array):
-    """Collapse leading dims to one row axis; return (rows, restore_fn)."""
-    lead = x.shape[:-1]
-    rows = 1
-    for s in lead:
-        rows *= s
-    flat = x.reshape(rows, x.shape[-1])
-    return flat, lambda y: y.reshape(*lead, y.shape[-1])
-
-
-# ---------------------------------------------------------------------------
-# Softmax
-# ---------------------------------------------------------------------------
-
-
-def _softmax_kernel(x_ref, o_ref, *, true_d: int, d_pad: int):
-    x = x_ref[...].astype(jnp.float32)
-    if d_pad > true_d:
-        col = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
-        x = jnp.where(col < true_d, x, _NEG_INF)
-    # Stable max-subtract — the reference keeps this too
-    # (nonlinearity.py:205-207); the exp itself is exact on the VPU.
-    m = jnp.max(x, axis=-1, keepdims=True)
-    e = jnp.exp(x - m)
-    s = jnp.sum(e, axis=-1, keepdims=True)
-    o_ref[...] = (e / s).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def _fused_softmax_2d(
-    x: jax.Array, block_rows: int = 256, interpret: Optional[bool] = None
-) -> jax.Array:
-    rows, d = x.shape
-    d_pad = round_up(d, NUM_LANES)
-    rows_pad = round_up(rows, block_rows)
-    xp = _pad_cols(x, d_pad)
-    if rows_pad != rows:
-        xp = jnp.pad(xp, ((0, rows_pad - rows), (0, 0)))
-    out = pl.pallas_call(
-        functools.partial(_softmax_kernel, true_d=d, d_pad=d_pad),
-        grid=(rows_pad // block_rows,),
-        in_specs=[pl.BlockSpec((block_rows, d_pad), lambda r: (r, 0))],
-        out_specs=pl.BlockSpec((block_rows, d_pad), lambda r: (r, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows_pad, d_pad), x.dtype),
-        interpret=resolve_interpret(interpret),
-    )(xp)
-    return out[:rows, :d]
-
-
-def fused_softmax(
-    x: jax.Array,
-    axis: int = -1,
-    *,
-    block_rows: int = 256,
-    interpret: Optional[bool] = None,
-) -> jax.Array:
-    """Numerically-stable softmax as one fused Pallas pass.
-
-    Rebirth of ``OpticalSoftmax.forward`` (reference nonlinearity.py:178-234)
-    without the cubic-polynomial exp approximation or the 0.9^channels
-    combining loss — those modeled analog-device limitations, not math.
-    """
-    if axis != -1 and axis != x.ndim - 1:
-        x = jnp.moveaxis(x, axis, -1)
-        out = fused_softmax(x, -1, block_rows=block_rows, interpret=interpret)
-        return jnp.moveaxis(out, -1, axis)
-    flat, restore = _row_view(x)
-    return restore(_fused_softmax_2d(flat, block_rows=block_rows, interpret=interpret))
-
-
-# ---------------------------------------------------------------------------
-# LayerNorm / RMSNorm
-# ---------------------------------------------------------------------------
-
-
-def _norm_kernel(
-    x_ref,
-    g_ref,
-    b_ref,  # None for RMSNorm
-    o_ref,
-    *,
-    eps: float,
-    true_d: int,
-    d_pad: int,
-    rms: bool,
-):
-    x = x_ref[...].astype(jnp.float32)
-    if d_pad > true_d:
-        col = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
-        x = jnp.where(col < true_d, x, 0.0)
-    inv_d = 1.0 / true_d
-    if rms:
-        ms = jnp.sum(x * x, axis=-1, keepdims=True) * inv_d
-        y = x * jax.lax.rsqrt(ms + eps)
-    else:
-        mu = jnp.sum(x, axis=-1, keepdims=True) * inv_d
-        xc = x - mu
-        if d_pad > true_d:
-            col = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
-            xc = jnp.where(col < true_d, xc, 0.0)
-        var = jnp.sum(xc * xc, axis=-1, keepdims=True) * inv_d
-        y = xc * jax.lax.rsqrt(var + eps)
-    y = y * g_ref[...].astype(jnp.float32)
-    if b_ref is not None:
-        y = y + b_ref[...].astype(jnp.float32)
-    o_ref[...] = y.astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("eps", "rms", "block_rows", "interpret")
-)
-def _fused_norm_2d(
-    x: jax.Array,
-    gamma: jax.Array,
-    beta: Optional[jax.Array],
-    *,
-    eps: float,
-    rms: bool,
-    block_rows: int = 256,
-    interpret: Optional[bool] = None,
-) -> jax.Array:
-    rows, d = x.shape
-    d_pad = round_up(d, NUM_LANES)
-    rows_pad = round_up(rows, block_rows)
-    xp = _pad_cols(x, d_pad)
-    if rows_pad != rows:
-        xp = jnp.pad(xp, ((0, rows_pad - rows), (0, 0)))
-    gp = _pad_cols(gamma.reshape(1, d), d_pad)
-    operands = [xp, gp]
-    in_specs = [
-        pl.BlockSpec((block_rows, d_pad), lambda r: (r, 0)),
-        pl.BlockSpec((1, d_pad), lambda r: (0, 0)),
-    ]
-    if beta is not None:
-        operands.append(_pad_cols(beta.reshape(1, d), d_pad))
-        in_specs.append(pl.BlockSpec((1, d_pad), lambda r: (0, 0)))
-        kernel = functools.partial(
-            _norm_kernel, eps=eps, true_d=d, d_pad=d_pad, rms=rms
-        )
-    else:
-        kernel = functools.partial(
-            lambda x_ref, g_ref, o_ref, **kw: _norm_kernel(
-                x_ref, g_ref, None, o_ref, **kw
-            ),
-            eps=eps,
-            true_d=d,
-            d_pad=d_pad,
-            rms=rms,
-        )
-    out = pl.pallas_call(
-        kernel,
-        grid=(rows_pad // block_rows,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((block_rows, d_pad), lambda r: (r, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows_pad, d_pad), x.dtype),
-        interpret=resolve_interpret(interpret),
-    )(*operands)
-    return out[:rows, :d]
-
-
-def _ln_ref(x, gamma, beta, eps):
-    xf = x.astype(jnp.float32)
-    mu = jnp.mean(xf, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(xf - mu), axis=-1, keepdims=True)
-    y = (xf - mu) * jax.lax.rsqrt(var + eps)
-    y = y * gamma.astype(jnp.float32)
-    if beta is not None:
-        y = y + beta.astype(jnp.float32)
-    return y.astype(x.dtype)
-
-
-def _rms_ref(x, gamma, eps):
-    xf = x.astype(jnp.float32)
-    ms = jnp.mean(jnp.square(xf), axis=-1, keepdims=True)
-    return (xf * jax.lax.rsqrt(ms + eps) * gamma.astype(jnp.float32)).astype(
-        x.dtype
-    )
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def _layer_norm(x, gamma, beta, eps):
-    flat, restore = _row_view(x)
-    return restore(_fused_norm_2d(flat, gamma, beta, eps=eps, rms=False))
-
-
-def _layer_norm_fwd(x, gamma, beta, eps):
-    return _layer_norm(x, gamma, beta, eps), (x, gamma, beta)
-
-
-def _layer_norm_bwd(eps, res, g):
-    # Backward is memory-bound and XLA fuses the reduction chain well;
-    # recompute-from-inputs keeps residual memory at O(input).
-    x, gamma, beta = res
-    _, vjp = jax.vjp(lambda x, w, b: _ln_ref(x, w, b, eps), x, gamma, beta)
-    return vjp(g)
-
-
-_layer_norm.defvjp(_layer_norm_fwd, _layer_norm_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def _rms_norm(x, gamma, eps):
-    flat, restore = _row_view(x)
-    return restore(_fused_norm_2d(flat, gamma, None, eps=eps, rms=True))
-
-
-def _rms_norm_fwd(x, gamma, eps):
-    return _rms_norm(x, gamma, eps), (x, gamma)
-
-
-def _rms_norm_bwd(eps, res, g):
-    x, gamma = res
-    _, vjp = jax.vjp(lambda x, w: _rms_ref(x, w, eps), x, gamma)
-    return vjp(g)
-
-
-_rms_norm.defvjp(_rms_norm_fwd, _rms_norm_bwd)
+def fused_softmax(x: jax.Array, axis: int = -1) -> jax.Array:
+    """Numerically stable softmax with float32 statistics."""
+    return jax.nn.softmax(x.astype(jnp.float32), axis=axis).astype(x.dtype)
 
 
 def fused_layer_norm(
@@ -283,30 +38,25 @@ def fused_layer_norm(
     beta: Optional[jax.Array] = None,
     eps: float = 1e-5,
 ) -> jax.Array:
-    """LayerNorm as one fused Pallas pass (reads/writes each row once).
-
-    Rebirth of ``OpticalLayerNorm`` (reference nonlinearity.py:334-382)
-    with fp32 statistics regardless of activation dtype. Differentiable
-    (custom VJP; backward recomputes statistics).
-    """
-    if beta is None:
-        beta = jnp.zeros_like(gamma)
-    return _layer_norm(x, gamma, beta, float(eps))
+    """LayerNorm with float32 statistics regardless of activation dtype."""
+    xf = x.astype(jnp.float32)
+    mu = jnp.mean(xf, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(xf - mu), axis=-1, keepdims=True)
+    y = (xf - mu) * jax.lax.rsqrt(var + eps) * gamma.astype(jnp.float32)
+    if beta is not None:
+        y = y + beta.astype(jnp.float32)
+    return y.astype(x.dtype)
 
 
 def fused_rms_norm(x: jax.Array, gamma: jax.Array, eps: float = 1e-6) -> jax.Array:
-    """RMSNorm (the Llama-family norm) as one fused Pallas pass."""
-    return _rms_norm(x, gamma, float(eps))
+    """RMSNorm (the Llama-family norm) with float32 statistics."""
+    xf = x.astype(jnp.float32)
+    ms = jnp.mean(jnp.square(xf), axis=-1, keepdims=True)
+    return (xf * jax.lax.rsqrt(ms + eps) * gamma.astype(jnp.float32)).astype(
+        x.dtype
+    )
 
 
-# ---------------------------------------------------------------------------
-# Elementwise activations + dispatcher
-# ---------------------------------------------------------------------------
-
-# On TPU these live in XLA fusions with their producer op; hand-writing a
-# Pallas kernel for a pure map would force an extra HBM round-trip. The
-# reference's MZI-switch relu / saturation gelu (nonlinearity.py:243-331)
-# existed to model device physics, not to go faster.
 relu = jax.nn.relu
 gelu = jax.nn.gelu
 

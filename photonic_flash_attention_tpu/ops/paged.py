@@ -1,54 +1,58 @@
-"""Paged-attention decode kernels over the HBM KV page pool.
+"""Paged-attention decode over the KV page pool.
 
-The decode-side consumer of :mod:`..core.kv_cache` — the rebirth of the
-reference's memory-manager + attention pairing for inference (reference
-core/memory_manager.py pool + core/flash_attention_3.py kernel), in the
-shape TPU serving actually needs: one query token per sequence attending
-over a *paged, possibly INT8-quantized* KV cache.
+One query token per sequence attends over its pages of a (possibly INT8)
+KV pool. Decode is bound by memory: the kernel's job is to read each
+cached byte once.
 
-Page layout: **token-minor** ``(num_kv_heads, num_pages, head_dim,
-page_size)`` — the head_dim runs over sublanes and tokens over lanes.
-This is the layout the TPU memory system requires: a per-page DMA slice
-is ``(head_dim, page_size)`` whose minor dimension is the 128-aligned
-page size. (The token-major ``(…, page_size, head_dim)`` convention
-fails Mosaic lowering for head_dim 64: HBM slices must be 128-aligned in
-the minor dimension.) It is also matmul-native: Q·K is a plain
-``(G, D) @ (D, tokens)`` contraction and P·V uses the A·Bᵀ dot form —
-no in-kernel transposes exist.
+Page layout: **token-major** ``(Hkv, P, page_size, head_dim)``, with an
+optional leading layer axis ``(L, Hkv, P, page_size, head_dim)`` for the
+serving pools that hold every layer in one array. INT8 pools carry
+per-token fp32 scales ``([L,] Hkv, P, page_size)``.
 
-Two implementations:
-
-* ``paged_attention_xla`` — gather-based XLA fallback (oracle + CPU path).
-* ``paged_attention`` — Pallas kernel: pages stay in HBM; each grid step
-  async-DMAs one block of pages into VMEM with double buffering (next
-  block's DMA overlaps current block's compute), online softmax across
-  blocks, per-token INT8 dequant fused after the gather. The page list is
-  scalar-prefetched so DMA addresses are known before the kernel body.
-  Requires ``page_size % 128 == 0`` on hardware.
-* ``paged_attention_auto`` — picks the Pallas kernel on TPU when the
-  layout allows it, the XLA fallback otherwise.
+* ``paged_attention`` — Pallas kernel on the Triton route. One program
+  per (sequence, KV head, split of the page list): it loads its own page
+  ids, gathers ``block_tokens`` cached rows per step, dequantizes INT8 in
+  registers, and keeps an online softmax for the query heads of its KV
+  head (GQA). The splits let a small batch fill the card; their partial
+  results merge by logsumexp in XLA. The layer index is an operand, so the
+  kernel reads the multi-layer pool in place. ``token_bias`` adds a
+  per-(head, key token) score bias (T5's relative bias at decode).
+* ``paged_attention_xla`` — gather-based XLA version: the plain reference
+  and the oracle of the tests.
+* ``write_tokens`` — the K/V write of a step as one XLA scatter into the
+  pool (in place when the pool is donated or carried through a scan).
 
 Shapes:
   q:            (B, Hq, D)           one token per sequence
-  k_pages:      (Hkv, P, D, page)
-  v_pages:      (Hkv, P, D, page)
   lengths:      (B,) int32           tokens valid per sequence
   page_indices: (B, pages_per_seq) int32
-  k_scales/v_scales: (Hkv, P, page) fp32 when payload is int8
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .pallas_utils import resolve_interpret
+from .pallas_utils import cdiv, next_pow2, resolve_interpret
 from .reference import DEFAULT_MASK_VALUE
+
+INT8_MAX = 127.0
+LOG2E = math.log2(math.e)
+#: SMs of the card the split count aims to fill twice over.
+_TARGET_PROGRAMS = 264
+
+
+def _layer_slice(x: Optional[jax.Array], layer) -> Optional[jax.Array]:
+    if x is None:
+        return None
+    return lax.dynamic_index_in_dim(x, jnp.reshape(layer, ()), 0, keepdims=False)
 
 
 def paged_attention_xla(
@@ -61,217 +65,113 @@ def paged_attention_xla(
     v_scales: Optional[jax.Array] = None,
     *,
     sm_scale: Optional[float] = None,
+    layer: Optional[jax.Array] = None,
+    token_bias: Optional[jax.Array] = None,
 ) -> jax.Array:
     """Gather-based paged attention (XLA). Returns (B, Hq, D)."""
+    if k_pages.ndim == 5:
+        k_pages, v_pages = _layer_slice(k_pages, layer), _layer_slice(v_pages, layer)
+        k_scales, v_scales = _layer_slice(k_scales, layer), _layer_slice(v_scales, layer)
     b, hq, d = q.shape
-    hkv, _, _, page = k_pages.shape
+    hkv, _, page, _ = k_pages.shape
     group = hq // hkv
-    pages_per_seq = page_indices.shape[1]
-    s_total = pages_per_seq * page
+    s_total = page_indices.shape[1] * page
     scale = sm_scale if sm_scale is not None else d ** -0.5
 
-    # Gather pages: (Hkv, B, pages_per_seq, D, page) -> (B, Hkv, D, S)
     def gather(pages, scales):
-        g = pages[:, page_indices]  # (Hkv, B, pages_per_seq, D, page)
-        g = g.transpose(1, 0, 3, 2, 4).reshape(b, hkv, d, s_total)
+        g = pages[:, page_indices]  # (Hkv, B, pps, page, D)
+        g = g.transpose(1, 0, 2, 3, 4).reshape(b, hkv, s_total, d)
         g = g.astype(jnp.float32)
         if scales is not None:
-            sc = scales[:, page_indices].transpose(1, 0, 2, 3)  # (B,Hkv,pps,page)
-            g = g * sc.reshape(b, hkv, 1, s_total)
+            sc = scales[:, page_indices].transpose(1, 0, 2, 3)
+            g = g * sc.reshape(b, hkv, s_total, 1)
         return g
 
     k = gather(k_pages, k_scales)
     v = gather(v_pages, v_scales)
-
     qf = q.astype(jnp.float32).reshape(b, hkv, group, d) * scale
-    s = jnp.einsum("bhgd,bhds->bhgs", qf, k)
+    s = jnp.einsum("bhgd,bhsd->bhgs", qf, k)
+    if token_bias is not None:
+        s = s + _fit_bias(token_bias, s_total).reshape(b, hkv, group, s_total)
     pos = jnp.arange(s_total, dtype=jnp.int32)
-    valid = pos[None] < lengths[:, None]  # (B, S)
+    valid = pos[None] < lengths[:, None]
     s = jnp.where(valid[:, None, None], s, DEFAULT_MASK_VALUE)
     p = jax.nn.softmax(s, axis=-1)
-    o = jnp.einsum("bhgs,bhds->bhgd", p, v)
+    o = jnp.einsum("bhgs,bhsd->bhgd", p, v)
     return o.reshape(b, hq, d).astype(q.dtype)
 
 
+def _fit_bias(token_bias: jax.Array, s_cap: int) -> jax.Array:
+    tb = token_bias.astype(jnp.float32)
+    if tb.shape[-1] < s_cap:
+        return jnp.pad(tb, ((0, 0), (0, 0), (0, s_cap - tb.shape[-1])))
+    return tb[..., :s_cap]
+
+
 # ---------------------------------------------------------------------------
-# Pallas kernel
+# Triton kernel
 # ---------------------------------------------------------------------------
 
 
 def _paged_kernel(
-    # scalar prefetch
-    layer_ref,  # (1,) SMEM layer index into the (L, ...) pool
-    lengths_ref,  # (B,) SMEM
-    page_indices_ref,  # (B * pages_per_seq,) SMEM (flattened)
-    # inputs
-    q_ref,  # (1, 1, G_pad, D) VMEM
-    k_pages_hbm,  # (L, Hkv, P, D, page) ANY/HBM
-    v_pages_hbm,
-    k_scales_hbm,  # (L, Hkv, P, 1, page) or dummy
-    v_scales_hbm,
-    # output
-    o_ref,  # (1, 1, G_pad, D) VMEM
-    # scratch
-    m_scratch,  # (G_pad, 128)
-    l_scratch,
-    acc_scratch,  # (G_pad, D)
-    k_buf,  # (2, D, block_tokens)
-    v_buf,
-    ks_buf,  # (2, 1, block_tokens): full-(1, page) DMA tiles — a
-    vs_buf,  # sub-sublane slice of a taller buffer fails Mosaic DMA
-    sems,  # DMA sems (2, 2, 2): [slot][k/v][payload/scale]
-    *,
-    sm_scale: float,
-    pages_per_block: int,
-    pages_per_seq: int,
-    page_size: int,
-    quantized: bool,
+    layer_ref, len_ref, pt_ref, q_ref, k_ref, v_ref, ks_ref, vs_ref, tb_ref,
+    o_ref, m_ref, l_ref, *, sm_scale: float, page: int, block_tokens: int,
+    pages_per_split: int, num_kv_heads: int, num_pages: int,
 ):
-    b = pl.program_id(0)
-    h = pl.program_id(1)
-    blk = pl.program_id(2)
-    num_blocks = pl.num_programs(2)
-    lyr = layer_ref[0]
-    length = lengths_ref[b]
-    block_tokens = pages_per_block * page_size
+    h, sp = pl.program_id(1), pl.program_id(2)
+    length = len_ref[0]
+    # Row of page 0 of this (layer, KV head) in the flattened pool.
+    base = (layer_ref[0] * num_kv_heads + h) * num_pages
+    first_tok = sp * pages_per_split * page
+    stop_tok = jnp.minimum(length, first_tok + pages_per_split * page)
+    n_blocks = lax.div(
+        jnp.maximum(stop_tok - first_tok, 0) + block_tokens - 1, block_tokens
+    )
+    q = q_ref[...]
+    g, d = q.shape
+    scale2 = sm_scale * LOG2E
+    lane = jnp.arange(block_tokens, dtype=jnp.int32)
 
-    def start_dma(block_idx, slot):
-        """Start DMAs for every page of one block."""
-        for i in range(pages_per_block):
-            flat = b * pages_per_seq + block_idx * pages_per_block + i
-            page_id = page_indices_ref[flat]
-            lanes = pl.ds(i * page_size, page_size)
-            pltpu.make_async_copy(
-                k_pages_hbm.at[lyr, h, page_id],  # (D, page)
-                k_buf.at[slot, :, lanes],
-                sems.at[slot, 0, 0],
-            ).start()
-            pltpu.make_async_copy(
-                v_pages_hbm.at[lyr, h, page_id],
-                v_buf.at[slot, :, lanes],
-                sems.at[slot, 1, 0],
-            ).start()
-            if quantized:
-                pltpu.make_async_copy(
-                    k_scales_hbm.at[lyr, h, page_id],  # (1, page)
-                    ks_buf.at[slot, :, lanes],
-                    sems.at[slot, 0, 1],
-                ).start()
-                pltpu.make_async_copy(
-                    v_scales_hbm.at[lyr, h, page_id],
-                    vs_buf.at[slot, :, lanes],
-                    sems.at[slot, 1, 1],
-                ).start()
+    def body(j, carry):
+        acc, m, l = carry
+        tok = first_tok + j * block_tokens + lane
+        # One row gather per tile: page id of each token, then its row.
+        rows = (pt_ref[tok // page] + base) * page + tok % page
+        k = k_ref[rows, :]
+        v = v_ref[rows, :]
+        s = pl.dot(q, k.astype(q.dtype), trans_b=True) * scale2
+        if ks_ref is not None:
+            s = s * ks_ref[rows][None, :]
+        if tb_ref is not None:
+            s = s + tb_ref[:, pl.ds(first_tok + j * block_tokens, block_tokens)] * LOG2E
+        valid = (tok < stop_tok)[None, :]
+        s = jnp.where(valid, s, DEFAULT_MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        p = jnp.where(valid, jnp.exp2(s - m_new[:, None]), 0.0)
+        alpha = jnp.exp2(m - m_new)
+        l = l * alpha + jnp.sum(p, axis=1)
+        if vs_ref is not None:
+            p = p * vs_ref[rows][None, :]
+        acc = acc * alpha[:, None] + pl.dot(p.astype(q.dtype), v.astype(q.dtype))
+        return acc, m_new, l
 
-    def wait_dma(slot, which):
-        # Wait for all page copies on this slot/stream (each page's copy
-        # signals the same semaphore once).
-        lanes0 = pl.ds(0, page_size)
-        for _ in range(pages_per_block):
-            if which == 0:
-                pltpu.make_async_copy(
-                    k_pages_hbm.at[0, h, 0], k_buf.at[slot, :, lanes0], sems.at[slot, 0, 0]
-                ).wait()
-            else:
-                pltpu.make_async_copy(
-                    v_pages_hbm.at[0, h, 0], v_buf.at[slot, :, lanes0], sems.at[slot, 1, 0]
-                ).wait()
-        if quantized:
-            for _ in range(pages_per_block):
-                if which == 0:
-                    pltpu.make_async_copy(
-                        k_scales_hbm.at[0, h, 0],
-                        ks_buf.at[slot, :, lanes0],
-                        sems.at[slot, 0, 1],
-                    ).wait()
-                else:
-                    pltpu.make_async_copy(
-                        v_scales_hbm.at[0, h, 0],
-                        vs_buf.at[slot, :, lanes0],
-                        sems.at[slot, 1, 1],
-                    ).wait()
+    acc, m, l = lax.fori_loop(
+        0, n_blocks, body,
+        (
+            jnp.zeros((g, d), jnp.float32),
+            jnp.full((g,), DEFAULT_MASK_VALUE, jnp.float32),
+            jnp.zeros((g,), jnp.float32),
+        ),
+    )
+    o_ref[...] = acc
+    m_ref[...] = m
+    l_ref[...] = l
 
-    slot = jax.lax.rem(blk, 2)
-    next_slot = jax.lax.rem(blk + 1, 2)
 
-    @pl.when(blk == 0)
-    def _init():
-        m_scratch[:] = jnp.full_like(m_scratch, -jnp.inf)
-        l_scratch[:] = jnp.zeros_like(l_scratch)
-        acc_scratch[:] = jnp.zeros_like(acc_scratch)
-
-        # Guarded by the same predicate the first wait_dma runs under
-        # (active at blk=0 is `length > 0`): an empty slot (length 0 —
-        # routine when the serving batch isn't full) must not start DMAs
-        # that are never waited, or the leaked semaphore credits satisfy
-        # a later grid row's wait before its own copies land.
-        @pl.when(length > 0)
-        def _():
-            start_dma(0, 0)
-
-    active = blk * block_tokens < length
-
-    @pl.when(active)
-    def _run():
-        # Prefetch next block while we compute on this one.
-        @pl.when(jnp.logical_and(blk + 1 < num_blocks, (blk + 1) * block_tokens < length))
-        def _prefetch():
-            start_dma(blk + 1, next_slot)
-
-        wait_dma(slot, 0)  # K ready
-        g_pad, d = q_ref.shape[2], q_ref.shape[3]
-        q = q_ref[0, 0].astype(jnp.float32)  # (G_pad, D)
-        k = k_buf[slot].astype(jnp.float32)  # (D, block_tokens)
-        if quantized:
-            k = k * ks_buf[slot, :1]  # per-token scales broadcast over D rows
-        # (G, D) @ (D, T): contraction over head_dim — matmul-native in the
-        # token-minor layout.
-        s = jax.lax.dot(q, k, preferred_element_type=jnp.float32) * sm_scale
-
-        pos = (
-            jax.lax.broadcasted_iota(jnp.int32, (g_pad, block_tokens), 1)
-            + blk * block_tokens
-        )
-        s = jnp.where(pos < length, s, DEFAULT_MASK_VALUE)
-
-        # Lane-replicated running stats (one lane-broadcast per block —
-        # same rewrite as ops/flash.py).
-        m_prev = m_scratch[:]  # (G_pad, 128)
-        l_prev = l_scratch[:]
-        m_curr = jnp.max(s, axis=1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        if block_tokens <= 128:  # includes interpret-mode small pages
-            m_wide = m_next[:, :block_tokens]
-        else:
-            m_wide = jnp.tile(m_next, (1, block_tokens // 128))
-        p = jnp.exp(s - m_wide)
-        alpha = jnp.exp(m_prev - m_next)
-        l_next = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
-        m_scratch[:] = m_next
-        l_scratch[:] = l_next
-
-        wait_dma(slot, 1)  # V ready
-        v = v_buf[slot].astype(jnp.float32)  # (D, block_tokens)
-        if quantized:
-            # Fold V's per-token scales into P (cheaper: G rows vs D rows).
-            p = p * vs_buf[slot, :1]
-        # (G, T) x (D, T) contracting T lanes on both — the A·Bᵀ dot form
-        # (same dimension_numbers the flash kernel's QKᵀ uses).
-        pv = jax.lax.dot_general(
-            p, v, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )  # (G_pad, D)
-        alpha_d = alpha[:, :d] if d <= 128 else jnp.tile(alpha, (1, d // 128))
-        acc_scratch[:] = acc_scratch[:] * alpha_d + pv
-
-    @pl.when(blk == num_blocks - 1)
-    def _store():
-        l_fin = l_scratch[:]
-        l_inv = jnp.where(l_fin == 0.0, 1.0, 1.0 / l_fin)
-        d_ = acc_scratch.shape[-1]
-        l_inv_d = l_inv[:, :d_] if d_ <= 128 else jnp.tile(
-            l_inv, (1, d_ // 128)
-        )
-        o_ref[0, 0] = (acc_scratch[:] * l_inv_d).astype(o_ref.dtype)
+def _splits(batch: int, num_kv_heads: int, num_blocks: int) -> int:
+    """Splits of the page list so that the grid fills the card twice."""
+    want = cdiv(_TARGET_PROGRAMS, max(1, batch * num_kv_heads))
+    return max(1, min(next_pow2(want), num_blocks))
 
 
 def paged_attention(
@@ -284,1016 +184,191 @@ def paged_attention(
     v_scales: Optional[jax.Array] = None,
     *,
     sm_scale: Optional[float] = None,
-    pages_per_block: int = 4,
-    interpret: Optional[bool] = None,
     layer: Optional[jax.Array] = None,
-) -> jax.Array:
-    """Pallas paged-attention decode. Returns (B, Hq, D) in q.dtype.
-
-    Hardware requires ``page_size % 128 == 0`` (token-minor pages put
-    tokens on lanes); interpreter mode accepts any size.
-
-    Pools may be rank 4 ``(Hkv, P, D, page)`` or rank 5 with a leading
-    layer axis ``(L, Hkv, P, D, page)`` + a scalar ``layer`` index: the
-    full multi-layer pool stays in HBM and the kernel DMAs from layer
-    ``layer`` directly — no XLA-level slicing of pool-sized buffers.
-
-    For the serving decode path use :func:`paged_decode_attention`,
-    which fuses the current token's pool write into the same call (the
-    write->read buffer economics demand it — see its docstring).
-    """
-    b, hq, d = q.shape
-    rank4_in = k_pages.ndim == 4
-    if rank4_in:
-        assert layer is None
-        k_pages = k_pages[None]
-        v_pages = v_pages[None]
-        if k_scales is not None:
-            k_scales = k_scales[None]
-            v_scales = v_scales[None]
-        layer = jnp.zeros((1,), jnp.int32)
-    layer = jnp.reshape(layer, (1,)).astype(jnp.int32)
-    L, hkv, num_pages, _, page_size = k_pages.shape
-    group = hq // hkv
-    pages_per_seq = page_indices.shape[1]
-    interp = resolve_interpret(interpret)
-    if page_size % 128 and not interp:
-        raise ValueError(
-            f"paged_attention on TPU requires page_size % 128 == 0, got "
-            f"{page_size}; use paged_attention_xla or a 128-token page pool"
-        )
-    if pages_per_seq % pages_per_block:
-        pad = pages_per_block - pages_per_seq % pages_per_block
-        page_indices = jnp.pad(page_indices, ((0, 0), (0, pad)))
-        pages_per_seq += pad
-    num_blocks = pages_per_seq // pages_per_block
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    quantized = k_scales is not None
-
-    # Pad the per-kv-head query group to the fp32 sublane minimum (8).
-    g_pad = max(8, group)
-    qg = q.reshape(b, hkv, group, d)
-    if g_pad != group:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
-
-    kernel = functools.partial(
-        _paged_kernel,
-        sm_scale=scale,
-        pages_per_block=pages_per_block,
-        pages_per_seq=pages_per_seq,
-        page_size=page_size,
-        quantized=quantized,
-    )
-
-    block_tokens = pages_per_block * page_size
-    sdtype = jnp.float32
-    # Scales travel as (L, Hkv, P, 1, page) so each per-page DMA is a
-    # full (1, page) tile (see kernel comment).
-    if quantized:
-        k_scales = k_scales.reshape(L, hkv, num_pages, 1, page_size)
-        v_scales = v_scales.reshape(L, hkv, num_pages, 1, page_size)
-    dummy_scales = jnp.zeros((1, 1, 1, 1, 128), sdtype)
-    ks_in = k_scales if quantized else dummy_scales
-    vs_in = v_scales if quantized else dummy_scales
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(b, hkv, num_blocks),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, g_pad, d), lambda b_, h_, blk, *refs: (b_, h_, 0, 0)
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),  # k_pages
-            pl.BlockSpec(memory_space=pl.ANY),  # v_pages
-            pl.BlockSpec(memory_space=pl.ANY),  # k_scales
-            pl.BlockSpec(memory_space=pl.ANY),  # v_scales
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 1, g_pad, d), lambda b_, h_, blk, *refs: (b_, h_, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((g_pad, 128), jnp.float32),
-            pltpu.VMEM((g_pad, 128), jnp.float32),
-            pltpu.VMEM((g_pad, d), jnp.float32),
-            pltpu.VMEM((2, d, block_tokens), k_pages.dtype),
-            pltpu.VMEM((2, d, block_tokens), v_pages.dtype),
-            pltpu.VMEM((2, 1, block_tokens), sdtype),
-            pltpu.VMEM((2, 1, block_tokens), sdtype),
-            pltpu.SemaphoreType.DMA((2, 2, 2)),
-        ],
-    )
-
-    o = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, hkv, g_pad, d), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-        ),
-        interpret=interp,
-    )(
-        layer,
-        lengths,
-        page_indices.reshape(-1),
-        qg,
-        k_pages,
-        v_pages,
-        ks_in,
-        vs_in,
-    )
-    return o[:, :, :group].reshape(b, hq, d)
-
-
-def _fused_decode_kernel(
-    # scalar prefetch
-    layer_ref,  # (1,) SMEM
-    lengths_ref,  # (B,) SMEM — length INCLUDING the current token
-    page_indices_ref,  # (B * pages_per_seq,) SMEM
-    slots_ref,  # (B,) SMEM flat slot (page*page_size + off) of current token
-    # inputs
-    q_ref,  # (1, Hkv, G_pad, D) VMEM — all heads for this sequence
-    k_ins_ref,  # (1, Hkv, D, 128) VMEM — new K columns lane-replicated
-    v_ins_ref,
-    ks_ins_ref,  # (1, Hkv, 1, 128) VMEM — new scales lane-replicated (or dummy)
-    vs_ins_ref,
-    bias_ref,  # (1, Hkv, block_tokens) VMEM per-token score bias (or dummy)
-    k_pages_hbm,  # (L, Hkv, P, D, page) ANY — aliased to k_out
-    v_pages_hbm,
-    k_scales_hbm,  # (L, Hkv, P, 1, page) ANY or dummy
-    v_scales_hbm,
-    # outputs
-    o_ref,  # (1, Hkv, G_pad, D) VMEM
-    k_out,  # aliased pools
-    v_out,
-    ks_out,
-    vs_out,
-    # scratch
-    m_scratch,  # (Hkv, G_pad, 128)
-    l_scratch,
-    acc_scratch,  # (Hkv, G_pad, D)
-    k_buf,  # (2, Hkv, D, block_tokens)
-    v_buf,
-    ks_buf,  # (2, Hkv, 1, block_tokens)
-    vs_buf,
-    sems,  # (2, 2, 2) DMA sems for block reads
-    page_k,  # (Hkv, D, page) VMEM — RMW staging
-    page_v,
-    page_ks,  # (Hkv, 1, page)
-    page_vs,
-    wsems,  # (4,) DMA sems for the RMW
-    *,
-    sm_scale: float,
-    pages_per_block: int,
-    pages_per_seq: int,
-    page_size: int,
-    quantized: bool,
-    has_bias: bool = False,
-    num_seqs_static: int = 1,
-):
-    """Fused decode, head-folded: grid is (B, kv_blocks) — ALL kv heads
-    are handled inside one grid step with batched matmuls, and each page
-    DMA grabs the (Hkv, D, page) slice for every head at once.
-
-    Two reasons this kernel exists (vs. a scatter + per-head attention):
-
-    * buffer economics — a separate XLA scatter gives the written pool
-      two consumers (attention + the next layer's carry), so XLA copies
-      the whole pool every layer (~1 ms per 640 MB pool on v5e);
-      here the pool is genuinely aliased in/out of ONE pallas call.
-    * grid-step economics — the per-(b, h) grid ran B*Hkv tiny steps per
-      layer whose DMA-issue + step overhead dominated decode; folding
-      heads cuts grid steps by Hkv and makes each DMA Hkv x larger.
-
-    The token write happens BEFORE any block-read DMA (read page ->
-    masked column insert -> write back), so the attention path simply
-    sees a pool that already contains the current token. All pool reads
-    go through the aliased OUTPUT refs (compiled mode: same buffer;
-    interpreter mode: only the output observes the write).
-    """
-    b = pl.program_id(0)
-    blk = pl.program_id(1)
-    num_blocks = pl.num_programs(1)
-    lyr = layer_ref[0]
-    length = lengths_ref[b]
-    block_tokens = pages_per_block * page_size
-
-    def start_dma(block_idx, slot):
-        for i in range(pages_per_block):
-            flat = b * pages_per_seq + block_idx * pages_per_block + i
-            page_id = page_indices_ref[flat]
-            lanes = pl.ds(i * page_size, page_size)
-            pltpu.make_async_copy(
-                k_out.at[lyr, :, page_id],  # (Hkv, D, page) strided
-                k_buf.at[slot, :, :, lanes],
-                sems.at[slot, 0, 0],
-            ).start()
-            pltpu.make_async_copy(
-                v_out.at[lyr, :, page_id],
-                v_buf.at[slot, :, :, lanes],
-                sems.at[slot, 1, 0],
-            ).start()
-            if quantized:
-                pltpu.make_async_copy(
-                    ks_out.at[lyr, :, page_id],  # (Hkv, 1, page)
-                    ks_buf.at[slot, :, :, lanes],
-                    sems.at[slot, 0, 1],
-                ).start()
-                pltpu.make_async_copy(
-                    vs_out.at[lyr, :, page_id],
-                    vs_buf.at[slot, :, :, lanes],
-                    sems.at[slot, 1, 1],
-                ).start()
-
-    def wait_dma(slot, which):
-        lanes0 = pl.ds(0, page_size)
-        for _ in range(pages_per_block):
-            if which == 0:
-                pltpu.make_async_copy(
-                    k_out.at[0, :, 0], k_buf.at[slot, :, :, lanes0], sems.at[slot, 0, 0]
-                ).wait()
-            else:
-                pltpu.make_async_copy(
-                    v_out.at[0, :, 0], v_buf.at[slot, :, :, lanes0], sems.at[slot, 1, 0]
-                ).wait()
-        if quantized:
-            for _ in range(pages_per_block):
-                if which == 0:
-                    pltpu.make_async_copy(
-                        ks_out.at[0, :, 0],
-                        ks_buf.at[slot, :, :, lanes0],
-                        sems.at[slot, 0, 1],
-                    ).wait()
-                else:
-                    pltpu.make_async_copy(
-                        vs_out.at[0, :, 0],
-                        vs_buf.at[slot, :, :, lanes0],
-                        sems.at[slot, 1, 1],
-                    ).wait()
-
-    slot = jax.lax.rem(blk, 2)
-    next_slot = jax.lax.rem(blk + 1, 2)
-
-    @pl.when(jnp.logical_and(b == 0, blk == 0))
-    def _rmw_all():
-        # --- Batched RMW token write for ALL sequences (round 5) ---
-        # The round-4 kernel staged each sequence's page inside its own
-        # (b, blk=0) grid step: read -> wait -> insert -> write -> wait,
-        # a serial latency chain repeated B times per layer — measured
-        # ~41 us/layer at B=8 (vs ~6 us of actual KV bytes), THE serving
-        # decode overhead once the GEMMs hit the weight-read floor.
-        # Batching all B sequences' staging into the first grid step
-        # overlaps the B x 4 DMA latencies (different sequences own
-        # disjoint pages; empty slots share the trash page, where
-        # last-write-wins is harmless).
-        pairs = [
-            (k_pages_hbm, k_out, page_k, k_ins_ref, 0),
-            (v_pages_hbm, v_out, page_v, v_ins_ref, 1),
-        ]
-        if quantized:
-            pairs.append((k_scales_hbm, ks_out, page_ks, ks_ins_ref, 2))
-            pairs.append((v_scales_hbm, vs_out, page_vs, vs_ins_ref, 3))
-
-        def pid_of(b2):
-            return slots_ref[b2] // page_size
-
-        for b2 in range(num_seqs_static):
-            pid = pid_of(b2)
-            for src, _dst, stage, _ins, si in pairs:
-                pltpu.make_async_copy(
-                    src.at[lyr, :, pid], stage.at[b2], wsems.at[si]
-                ).start()
-        for b2 in range(num_seqs_static):
-            for src, _dst, stage, _ins, si in pairs:
-                pltpu.make_async_copy(
-                    src.at[0, :, 0], stage.at[b2], wsems.at[si]
-                ).wait()
-        # Masked column inserts (VPU selects, all sequences).
-        for b2 in range(num_seqs_static):
-            off = slots_ref[b2] % page_size
-            for _src, _dst, stage, ins, si in pairs:
-                hkv_, rows = stage.shape[1], stage.shape[2]
-                col_iota = jax.lax.broadcasted_iota(
-                    jnp.int32, (hkv_, rows, page_size), 2
-                )
-                ins_tile = ins[b2]  # (Hkv, rows, 128)
-                if page_size > 128:
-                    ins_tile = jnp.tile(ins_tile, (1, 1, page_size // 128))
-                else:
-                    ins_tile = ins_tile[:, :, :page_size]
-                stage[b2] = jnp.where(
-                    col_iota == off, ins_tile.astype(stage.dtype), stage[b2]
-                )
-        for b2 in range(num_seqs_static):
-            pid = pid_of(b2)
-            for _src, dst, stage, _ins, si in pairs:
-                pltpu.make_async_copy(
-                    stage.at[b2], dst.at[lyr, :, pid], wsems.at[si]
-                ).start()
-        for b2 in range(num_seqs_static):
-            for _src, dst, stage, _ins, si in pairs:
-                pltpu.make_async_copy(
-                    stage.at[b2], dst.at[0, :, 0], wsems.at[si]
-                ).wait()
-
-    @pl.when(blk == 0)
-    def _init():
-        m_scratch[:] = jnp.full_like(m_scratch, -jnp.inf)
-        l_scratch[:] = jnp.zeros_like(l_scratch)
-        acc_scratch[:] = jnp.zeros_like(acc_scratch)
-
-        # Reads may start: grid steps run sequentially, so the batched
-        # RMW above (global step 0) has completed and the pool (aliased
-        # in/out) holds every sequence's token. Guarded by the same
-        # predicate the first wait_dma runs under (active at blk=0 is
-        # `length > 0`): an empty serving slot must not start DMAs that
-        # are never waited — the leaked semaphore credits would satisfy
-        # a later grid row's wait early, reading stale K/V.
-        @pl.when(length > 0)
-        def _():
-            start_dma(0, 0)
-
-    active = blk * block_tokens < length
-
-    @pl.when(active)
-    def _run():
-        @pl.when(jnp.logical_and(blk + 1 < num_blocks, (blk + 1) * block_tokens < length))
-        def _prefetch():
-            start_dma(blk + 1, next_slot)
-
-        wait_dma(slot, 0)
-        hkv_, g_pad, d = q_ref.shape[1], q_ref.shape[2], q_ref.shape[3]
-        q = q_ref[0].astype(jnp.float32)  # (Hkv, G_pad, D)
-        k = k_buf[slot].astype(jnp.float32)  # (Hkv, D, T)
-        if quantized:
-            k = k * ks_buf[slot]  # (Hkv, 1, T) broadcast over D
-        # Batched (over heads) matmul: (Hkv, G, D) x (Hkv, D, T).
-        s = jax.lax.dot_general(
-            q, k, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ) * sm_scale  # (Hkv, G_pad, T)
-
-        if has_bias:
-            # Per-(head, token) additive score bias — in-kernel T5
-            # relative-position bias at decode (reference applies its
-            # position_bias inside the attention forward; here the
-            # (B, Hkv, S) bias is computed per step in XLA and streamed
-            # per kv block).
-            s = s + bias_ref[0][:, None, :]
-
-        pos = (
-            jax.lax.broadcasted_iota(jnp.int32, (hkv_, g_pad, block_tokens), 2)
-            + blk * block_tokens
-        )
-        s = jnp.where(pos < length, s, DEFAULT_MASK_VALUE)
-
-        m_prev = m_scratch[:]  # (Hkv, G_pad, 128) lane-replicated
-        l_prev = l_scratch[:]
-        m_curr = jnp.max(s, axis=2, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        if block_tokens <= 128:
-            m_wide = m_next[:, :, :block_tokens]
-        else:
-            m_wide = jnp.tile(m_next, (1, 1, block_tokens // 128))
-        p = jnp.exp(s - m_wide)
-        alpha = jnp.exp(m_prev - m_next)
-        l_next = alpha * l_prev + jnp.sum(p, axis=2, keepdims=True)
-        m_scratch[:] = m_next
-        l_scratch[:] = l_next
-
-        wait_dma(slot, 1)
-        v = v_buf[slot].astype(jnp.float32)  # (Hkv, D, T)
-        if quantized:
-            p = p * vs_buf[slot]  # fold V scales into P
-        # (Hkv, G, T) x (Hkv, D, T) contracting T on both (A.B^T form).
-        pv = jax.lax.dot_general(
-            p, v, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # (Hkv, G_pad, D)
-        alpha_d = (
-            alpha[:, :, :d] if d <= 128 else jnp.tile(alpha, (1, 1, d // 128))
-        )
-        acc_scratch[:] = acc_scratch[:] * alpha_d + pv
-
-    @pl.when(blk == num_blocks - 1)
-    def _store():
-        l_fin = l_scratch[:]
-        l_inv = jnp.where(l_fin == 0.0, 1.0, 1.0 / l_fin)
-        d_ = acc_scratch.shape[-1]
-        l_inv_d = (
-            l_inv[:, :, :d_] if d_ <= 128 else jnp.tile(l_inv, (1, 1, d_ // 128))
-        )
-        o_ref[0] = (acc_scratch[:] * l_inv_d).astype(o_ref.dtype)
-
-
-def paged_decode_attention(
-    q: jax.Array,  # (B, Hq, D)
-    k_new: jax.Array,  # (B, Hkv, D) — current token's K (unquantized)
-    v_new: jax.Array,
-    k_pages: jax.Array,  # (L, Hkv, P, D, page)
-    v_pages: jax.Array,
-    lengths: jax.Array,  # (B,) length INCLUDING the current token
-    page_indices: jax.Array,  # (B, pages_per_seq)
-    flat_slots: jax.Array,  # (B,) slot of the current token
-    layer: jax.Array,  # scalar layer index
-    k_scales: Optional[jax.Array] = None,  # (L, Hkv, P, page)
-    v_scales: Optional[jax.Array] = None,
-    *,
-    sm_scale: Optional[float] = None,
-    pages_per_block: int = 4,
+    token_bias: Optional[jax.Array] = None,
+    block_tokens: Optional[int] = None,
+    num_splits: Optional[int] = None,
     interpret: Optional[bool] = None,
-    token_bias: Optional[jax.Array] = None,  # (B, Hkv, >=S_cap) fp32
-):
-    """Fused decode step: write the token's K/V into the paged pool
-    (in place — pools are aliased in/out) and attend over it.
-
-    ``token_bias`` adds a per-(head, key-token) score bias in-kernel —
-    the T5 relative-position bias at decode. Its token axis must cover
-    the padded page-table capacity (zero-padded; columns past ``lengths``
-    are masked anyway).
-
-    Returns ``(o, k_pages, v_pages)`` or
-    ``(o, k_pages, v_pages, k_scales, v_scales)`` when quantized —
-    thread the returned pools forward. See :func:`_fused_decode_kernel`
-    for the two structural reasons the fusion exists.
-    """
-    b, hq, d = q.shape
-    L, hkv, num_pages, _, page_size = k_pages.shape
-    group = hq // hkv
-    pages_per_seq = page_indices.shape[1]
-    interp = resolve_interpret(interpret)
-    if page_size % 128 and not interp:
-        raise ValueError(
-            f"paged_decode_attention on TPU requires page_size % 128 == 0,"
-            f" got {page_size}"
-        )
-    if pages_per_seq % pages_per_block:
-        pad = pages_per_block - pages_per_seq % pages_per_block
-        page_indices = jnp.pad(page_indices, ((0, 0), (0, pad)))
-        pages_per_seq += pad
-    num_blocks = pages_per_seq // pages_per_block
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    quantized = k_scales is not None
-    layer = jnp.reshape(layer, (1,)).astype(jnp.int32)
-    lane = 128
-
-    g_pad = max(8, group)
-    qg = q.reshape(b, hkv, group, d)
-    if g_pad != group:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
-
-    # Quantize the new token (per-token symmetric, same as the pool).
-    if quantized:
-        kq, ks_new = _quant_token_write(k_new)
-        vq, vs_new = _quant_token_write(v_new)
-        ks_ins = jnp.broadcast_to(ks_new[:, :, None, None], (b, hkv, 1, lane))
-        vs_ins = jnp.broadcast_to(vs_new[:, :, None, None], (b, hkv, 1, lane))
-        k_ins = jnp.broadcast_to(kq[..., None], (b, hkv, d, lane))
-        v_ins = jnp.broadcast_to(vq[..., None], (b, hkv, d, lane))
-        in_scale_shape = k_scales.shape
-        k_scales5 = k_scales.reshape(L, hkv, num_pages, 1, page_size)
-        v_scales5 = v_scales.reshape(L, hkv, num_pages, 1, page_size)
-    else:
-        k_ins = jnp.broadcast_to(
-            k_new.astype(k_pages.dtype)[..., None], (b, hkv, d, lane)
-        )
-        v_ins = jnp.broadcast_to(
-            v_new.astype(v_pages.dtype)[..., None], (b, hkv, d, lane)
-        )
-        ks_ins = jnp.zeros((b, hkv, 1, lane), jnp.float32)
-        vs_ins = jnp.zeros((b, hkv, 1, lane), jnp.float32)
-        k_scales5 = jnp.zeros((1, hkv, 1, 1, 128), jnp.float32)
-        v_scales5 = jnp.zeros((1, hkv, 1, 1, 128), jnp.float32)
-
-    block_tokens = pages_per_block * page_size
-    has_bias = token_bias is not None
-    if has_bias:
-        s_cap = pages_per_seq * page_size
-        tb = token_bias.astype(jnp.float32)
-        if tb.shape[-1] < s_cap:
-            tb = jnp.pad(tb, ((0, 0), (0, 0), (0, s_cap - tb.shape[-1])))
-        else:
-            tb = tb[..., :s_cap]
-        bias_spec = pl.BlockSpec(
-            (1, hkv, block_tokens), lambda b_, blk, *refs: (b_, 0, blk)
-        )
-    else:
-        tb = jnp.zeros((b, hkv, 128), jnp.float32)
-        bias_spec = pl.BlockSpec(
-            (1, hkv, 128), lambda b_, blk, *refs: (b_, 0, 0)
-        )
-
-    kernel = functools.partial(
-        _fused_decode_kernel,
-        sm_scale=scale,
-        pages_per_block=pages_per_block,
-        pages_per_seq=pages_per_seq,
-        page_size=page_size,
-        quantized=quantized,
-        has_bias=has_bias,
-        num_seqs_static=b,
-    )
-
-    sdtype = jnp.float32
-
-    def seq_spec(arr):
-        return pl.BlockSpec(
-            (1,) + arr.shape[1:], lambda b_, blk, *refs: (b_, 0, 0, 0)
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(b, num_blocks),
-        in_specs=[
-            seq_spec(qg),
-            # Full (B, ...) blocks: the batched RMW at global step 0
-            # inserts every sequence's token, so all token columns must
-            # be resident in that step (1-2 MB at B=8).
-            pl.BlockSpec(k_ins.shape, lambda b_, blk, *refs: (0, 0, 0, 0)),
-            pl.BlockSpec(v_ins.shape, lambda b_, blk, *refs: (0, 0, 0, 0)),
-            pl.BlockSpec(ks_ins.shape, lambda b_, blk, *refs: (0, 0, 0, 0)),
-            pl.BlockSpec(vs_ins.shape, lambda b_, blk, *refs: (0, 0, 0, 0)),
-            bias_spec,
-            pl.BlockSpec(memory_space=pl.ANY),  # k_pages
-            pl.BlockSpec(memory_space=pl.ANY),  # v_pages
-            pl.BlockSpec(memory_space=pl.ANY),  # k_scales
-            pl.BlockSpec(memory_space=pl.ANY),  # v_scales
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (1, hkv, g_pad, d), lambda b_, blk, *refs: (b_, 0, 0, 0)
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((hkv, g_pad, 128), jnp.float32),
-            pltpu.VMEM((hkv, g_pad, 128), jnp.float32),
-            pltpu.VMEM((hkv, g_pad, d), jnp.float32),
-            pltpu.VMEM((2, hkv, d, block_tokens), k_pages.dtype),
-            pltpu.VMEM((2, hkv, d, block_tokens), v_pages.dtype),
-            pltpu.VMEM((2, hkv, 1, block_tokens), sdtype),
-            pltpu.VMEM((2, hkv, 1, block_tokens), sdtype),
-            pltpu.SemaphoreType.DMA((2, 2, 2)),
-            # Page staging for the BATCHED RMW (leading B dim).
-            pltpu.VMEM((b, hkv, d, page_size), k_pages.dtype),
-            pltpu.VMEM((b, hkv, d, page_size), v_pages.dtype),
-            pltpu.VMEM((b, hkv, 1, page_size), sdtype),
-            pltpu.VMEM((b, hkv, 1, page_size), sdtype),
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-    )
-
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((b, hkv, g_pad, d), q.dtype),
-            jax.ShapeDtypeStruct(k_pages.shape, k_pages.dtype),
-            jax.ShapeDtypeStruct(v_pages.shape, v_pages.dtype),
-            jax.ShapeDtypeStruct(k_scales5.shape, k_scales5.dtype),
-            jax.ShapeDtypeStruct(v_scales5.shape, v_scales5.dtype),
-        ),
-        # Operand indices include the 4 scalar-prefetch args:
-        # q=4, k_ins=5, v_ins=6, ks_ins=7, vs_ins=8, bias=9, k_pages=10,
-        # v=11, ks=12, vs=13.
-        input_output_aliases={10: 1, 11: 2, 12: 3, 13: 4},
-        compiler_params=pltpu.CompilerParams(
-            # Both axes ARBITRARY (round 5): the batched RMW at
-            # (b=0, blk=0) writes EVERY sequence's token before any
-            # other grid step's reads, which is only sound if grid steps
-            # execute in order — "parallel" would license Mosaic to
-            # reorder/split the batch axis. Sequential execution is what
-            # a single v5e core does anyway; this just forbids the
-            # reordering.
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interp,
-    )(
-        layer,
-        lengths,
-        page_indices.reshape(-1),
-        flat_slots.astype(jnp.int32),
-        qg,
-        k_ins,
-        v_ins,
-        ks_ins,
-        vs_ins,
-        tb,
-        k_pages,
-        v_pages,
-        k_scales5,
-        v_scales5,
-    )
-    o, k_out, v_out, ks_out, vs_out = outs
-    o = o[:, :, :group].reshape(b, hq, d)
-    if quantized:
-        return (
-            o,
-            k_out,
-            v_out,
-            ks_out.reshape(in_scale_shape),
-            vs_out.reshape(in_scale_shape),
-        )
-    return o, k_out, v_out
-
-
-def _paged_hf_kernel(
-    # scalar prefetch
-    layer_ref,  # (1,) SMEM
-    lengths_ref,  # (B,) SMEM
-    page_indices_ref,  # (B * pages_per_seq,) SMEM
-    # inputs
-    q_ref,  # (1, Hkv, G_pad, D) VMEM (int8 when int8_compute)
-    scale_ref,  # (1,) SMEM: q dequant scale x sm_scale (1.0*sm_scale float path)
-    k_pages_hbm,  # (L, Hkv, P, D, page) ANY
-    v_pages_hbm,
-    k_scales_hbm,  # (L, Hkv, P, 1, page) ANY or dummy
-    v_scales_hbm,
-    # output
-    o_ref,  # (1, Hkv, G_pad, D) VMEM
-    # scratch
-    m_scratch,  # (Hkv, G_pad, 128)
-    l_scratch,
-    acc_scratch,  # (Hkv, G_pad, D)
-    k_buf,  # (NBUF, Hkv, D, block_tokens)
-    v_buf,
-    ks_buf,  # (NBUF, Hkv, 1, block_tokens)
-    vs_buf,
-    sems,  # DMA sems (NBUF, 4): [slot][k/v/ks/vs]
-    *,
-    pages_per_block: int,
-    pages_per_seq: int,
-    page_size: int,
-    quantized: bool,
-    int8_compute: bool,
-    num_buffers: int,
-):
-    """Head-folded, bandwidth-first paged decode kernel.
-
-    The round-3 kernel ran a (B, Hkv, blocks) grid whose per-step DMA was
-    one (D, page) slice — 8 KB at D=64/int8 — and measured 13% of HBM
-    bandwidth (BENCH_r03). This kernel restructures for bandwidth:
-
-    * heads folded into the grid step: each page DMA moves the whole
-      (Hkv, D, page) slice (Hkv x larger, e.g. 128 KB at Hkv=8, D=128),
-    * cross-sequence software pipelining: the step for (b, blk) starts
-      the DMA for the NEXT grid step — including across the b boundary —
-      so the DMA queue never drains between sequences,
-    * optional full-int8 compute: Q is per-tensor int8 (scores dequant by
-      one SMEM scalar x per-token K scales on the SMALL score tile), and
-      P·V runs int8 with a per-row dynamic P requant — so no elementwise
-      pass ever touches the big (Hkv, D, block_tokens) K/V tiles. All
-      VPU work rides (Hkv, G, T)-shaped score/P tiles, Hkv*G/D-fold
-      smaller than the payload.
-
-    Reference pairing: core/memory_manager.py pool + the decode use of
-    core/flash_attention_3.py; north star "INT8 KV-cache decode >= 90%
-    of roofline" (BASELINE.md).
-    """
-    b = pl.program_id(0)
-    blk = pl.program_id(1)
-    num_blocks = pl.num_programs(1)
-    num_seqs = pl.num_programs(0)
-    lyr = layer_ref[0]
-    length = lengths_ref[b]
-    block_tokens = pages_per_block * page_size
-    step = b * num_blocks + blk
-    slot = jax.lax.rem(step, num_buffers)
-    next_slot = jax.lax.rem(step + 1, num_buffers)
-
-    def start_dma(b2, block_idx, slot_):
-        for i in range(pages_per_block):
-            flat = b2 * pages_per_seq + block_idx * pages_per_block + i
-            page_id = page_indices_ref[flat]
-            lanes = pl.ds(i * page_size, page_size)
-            pltpu.make_async_copy(
-                k_pages_hbm.at[lyr, :, page_id],  # (Hkv, D, page)
-                k_buf.at[slot_, :, :, lanes],
-                sems.at[slot_, 0],
-            ).start()
-            pltpu.make_async_copy(
-                v_pages_hbm.at[lyr, :, page_id],
-                v_buf.at[slot_, :, :, lanes],
-                sems.at[slot_, 1],
-            ).start()
-            if quantized:
-                pltpu.make_async_copy(
-                    k_scales_hbm.at[lyr, :, page_id],  # (Hkv, 1, page)
-                    ks_buf.at[slot_, :, :, lanes],
-                    sems.at[slot_, 2],
-                ).start()
-                pltpu.make_async_copy(
-                    v_scales_hbm.at[lyr, :, page_id],
-                    vs_buf.at[slot_, :, :, lanes],
-                    sems.at[slot_, 3],
-                ).start()
-
-    def wait_dma(slot_, which):
-        lanes0 = pl.ds(0, page_size)
-        bufs = (k_buf, v_buf, ks_buf, vs_buf)
-        srcs = (k_pages_hbm, v_pages_hbm, k_scales_hbm, v_scales_hbm)
-        for _ in range(pages_per_block):
-            pltpu.make_async_copy(
-                srcs[which].at[0, :, 0],
-                bufs[which].at[slot_, :, :, lanes0],
-                sems.at[slot_, which],
-            ).wait()
-
-    @pl.when(blk == 0)
-    def _init():
-        m_scratch[:] = jnp.full_like(m_scratch, -jnp.inf)
-        l_scratch[:] = jnp.zeros_like(l_scratch)
-        acc_scratch[:] = jnp.zeros_like(acc_scratch)
-
-    active = blk * block_tokens < length
-
-    # Step 0 has no predecessor: start its own DMA.
-    @pl.when(jnp.logical_and(step == 0, active))
-    def _first():
-        start_dma(b, 0, slot)
-
-    # Cross-boundary prefetch: EVERY step starts the next step's DMA if
-    # that step is active (runs on inactive steps too, so the first
-    # active block of the next sequence is always in flight).
-    @pl.when(step + 1 < num_seqs * num_blocks)
-    def _prefetch():
-        last_of_seq = blk == num_blocks - 1
-        b2 = jax.lax.select(last_of_seq, b + 1, b)
-        blk2 = jax.lax.select(last_of_seq, 0, blk + 1)
-        next_active = blk2 * block_tokens < lengths_ref[b2]
-
-        @pl.when(next_active)
-        def _():
-            start_dma(b2, blk2, next_slot)
-
-    @pl.when(active)
-    def _run():
-        wait_dma(slot, 0)  # K payload
-        if quantized:
-            wait_dma(slot, 2)  # K scales
-        hkv_, g_pad, d = q_ref.shape[1], q_ref.shape[2], q_ref.shape[3]
-        if int8_compute:
-            q = q_ref[0]  # (Hkv, G_pad, D) int8
-            s = jax.lax.dot_general(
-                q, k_buf[slot], (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32) * scale_ref[0]
-        else:
-            q = q_ref[0].astype(jnp.float32)
-            k = k_buf[slot].astype(jnp.float32)
-            s = jax.lax.dot_general(
-                q, k, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            ) * scale_ref[0]
-        if quantized:
-            s = s * ks_buf[slot]  # (Hkv, 1, T) per-token K scales
-
-        pos = (
-            jax.lax.broadcasted_iota(jnp.int32, (hkv_, g_pad, block_tokens), 2)
-            + blk * block_tokens
-        )
-        s = jnp.where(pos < length, s, DEFAULT_MASK_VALUE)
-
-        m_prev = m_scratch[:]  # (Hkv, G_pad, 128) lane-replicated
-        l_prev = l_scratch[:]
-        m_curr = jnp.max(s, axis=2, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        if block_tokens <= 128:
-            m_wide = m_next[:, :, :block_tokens]
-        else:
-            m_wide = jnp.tile(m_next, (1, 1, block_tokens // 128))
-        p = jnp.exp(s - m_wide)
-        alpha = jnp.exp(m_prev - m_next)
-        l_next = alpha * l_prev + jnp.sum(p, axis=2, keepdims=True)
-        m_scratch[:] = m_next
-        l_scratch[:] = l_next
-
-        wait_dma(slot, 1)  # V payload
-        if quantized:
-            wait_dma(slot, 3)  # V scales
-            p = p * vs_buf[slot]  # fold per-token V scales into P
-        if int8_compute:
-            # Per-row dynamic P requant: all work on the small P tile.
-            pmax = jnp.max(p, axis=2, keepdims=True)  # (Hkv, G, 1)
-            pinv = jnp.where(pmax == 0.0, 0.0, 127.0 / pmax)
-            p8 = (p * pinv + 0.5).astype(jnp.int8)  # p>=0; <=127.5 truncates
-            pv = jax.lax.dot_general(
-                p8, v_buf[slot], (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32)
-            pscale = jnp.where(pmax == 0.0, 0.0, pmax / 127.0)
-            pv = pv * pscale  # (Hkv, G, 1) lane-broadcast over D
-        else:
-            v = v_buf[slot].astype(jnp.float32)
-            pv = jax.lax.dot_general(
-                p, v, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-        d_ = acc_scratch.shape[-1]
-        alpha_d = (
-            alpha[:, :, :d_] if d_ <= 128 else jnp.tile(alpha, (1, 1, d_ // 128))
-        )
-        acc_scratch[:] = acc_scratch[:] * alpha_d + pv
-
-    @pl.when(blk == num_blocks - 1)
-    def _store():
-        l_fin = l_scratch[:]
-        l_inv = jnp.where(l_fin == 0.0, 1.0, 1.0 / l_fin)
-        d_ = acc_scratch.shape[-1]
-        l_inv_d = (
-            l_inv[:, :, :d_] if d_ <= 128 else jnp.tile(l_inv, (1, 1, d_ // 128))
-        )
-        o_ref[0] = (acc_scratch[:] * l_inv_d).astype(o_ref.dtype)
-
-
-def paged_attention_hf(
-    q: jax.Array,
-    k_pages: jax.Array,
-    v_pages: jax.Array,
-    lengths: jax.Array,
-    page_indices: jax.Array,
-    k_scales: Optional[jax.Array] = None,
-    v_scales: Optional[jax.Array] = None,
-    *,
-    sm_scale: Optional[float] = None,
-    pages_per_block: int = 8,
-    num_buffers: int = 2,
-    int8_compute: Optional[bool] = None,
-    interpret: Optional[bool] = None,
-    layer: Optional[jax.Array] = None,
 ) -> jax.Array:
-    """Head-folded bandwidth-first paged decode (see `_paged_hf_kernel`).
+    """Paged decode attention. Returns (B, Hq, D) in q.dtype.
 
-    Same contract as :func:`paged_attention`. ``int8_compute`` (default:
-    on exactly when the pool is int8-quantized) additionally quantizes Q
-    per-tensor and runs both matmuls on the int8 MXU path.
+    Products run in q's dtype on the tensor cores: bf16, or float32 at
+    the default matmul precision (TF32 on the GPU, exact in the CPU
+    interpreter); int8 pages are dequantized to it in registers.
+
+    Pools are ``(Hkv, P, page, D)`` or, with ``layer``, ``(L, Hkv, P,
+    page, D)``; scales drop the last axis. ``token_bias`` is (B, Hq, S)
+    fp32 over token positions (zero-padded or cut to the page-table
+    capacity; columns past ``lengths`` are masked anyway).
     """
-    b, hq, d = q.shape
-    rank4_in = k_pages.ndim == 4
-    if rank4_in:
-        assert layer is None
-        k_pages = k_pages[None]
-        v_pages = v_pages[None]
+    if k_pages.ndim == 4:
+        k_pages, v_pages = k_pages[None], v_pages[None]
         if k_scales is not None:
-            k_scales = k_scales[None]
-            v_scales = v_scales[None]
+            k_scales, v_scales = k_scales[None], v_scales[None]
         layer = jnp.zeros((1,), jnp.int32)
-    layer = jnp.reshape(layer, (1,)).astype(jnp.int32)
-    L, hkv, num_pages, _, page_size = k_pages.shape
+    if layer is None:
+        raise ValueError("a layered pool (rank 5) needs its layer index")
+    b, hq, d = q.shape
+    n_layers, hkv, num_pages, page, _ = k_pages.shape
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} not divisible by Hkv {hkv} (GQA)")
+    if page < 1 or page & (page - 1):
+        raise ValueError(f"page_size must be a power of two, got {page}")
     group = hq // hkv
-    pages_per_seq = page_indices.shape[1]
-    interp = resolve_interpret(interpret)
-    if page_size % 128 and not interp:
-        raise ValueError(
-            f"paged_attention_hf on TPU requires page_size % 128 == 0, got "
-            f"{page_size}"
-        )
-    if pages_per_seq % pages_per_block:
-        pad = pages_per_block - pages_per_seq % pages_per_block
-        page_indices = jnp.pad(page_indices, ((0, 0), (0, pad)))
-        pages_per_seq += pad
-    num_blocks = pages_per_seq // pages_per_block
+    pps = page_indices.shape[1]
+    bt = block_tokens or 128
+    if bt & (bt - 1) or bt < 16:
+        raise ValueError(f"block_tokens must be a power of two >= 16, got {bt}")
+    ppb = max(1, bt // page)  # pages per tile (a tile may be part of a page)
+    nblk = cdiv(pps, ppb)
+    splits = num_splits or _splits(b, hkv, nblk)
+    pages_per_split = cdiv(nblk, splits) * ppb
+    pps_p = splits * pages_per_split
     scale = sm_scale if sm_scale is not None else d ** -0.5
     quantized = k_scales is not None
-    if int8_compute is None:
-        int8_compute = quantized and k_pages.dtype == jnp.int8
 
-    g_pad = max(8, group)
+    gp = max(16, next_pow2(group))
+    dp = max(16, next_pow2(d))
     qg = q.reshape(b, hkv, group, d)
-    if g_pad != group:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
-
-    if int8_compute:
-        absmax = jnp.max(jnp.abs(qg.astype(jnp.float32)))
-        qs = jnp.where(absmax == 0.0, 1.0, absmax / 127.0)
-        qg = jnp.clip(
-            jnp.round(qg.astype(jnp.float32) / qs), -127.0, 127.0
-        ).astype(jnp.int8)
-        score_scale = (qs * scale).reshape(1).astype(jnp.float32)
-    else:
-        score_scale = jnp.full((1,), scale, jnp.float32)
-
-    kernel = functools.partial(
-        _paged_hf_kernel,
-        pages_per_block=pages_per_block,
-        pages_per_seq=pages_per_seq,
-        page_size=page_size,
-        quantized=quantized,
-        int8_compute=int8_compute,
-        num_buffers=num_buffers,
-    )
-
-    block_tokens = pages_per_block * page_size
-    sdtype = jnp.float32
+    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, gp - group), (0, dp - d)))
+    pt = jnp.pad(page_indices.astype(jnp.int32), ((0, 0), (0, pps_p - pps)))
+    # Flattened (rows, D) views of the pool: a free reshape, no copy.
+    flat = (n_layers * hkv * num_pages * page, d)
+    kf, vf = k_pages.reshape(flat), v_pages.reshape(flat)
+    if dp != d:
+        kf = jnp.pad(kf, ((0, 0), (0, dp - d)))
+        vf = jnp.pad(vf, ((0, 0), (0, dp - d)))
+    ksf = vsf = ks_spec = None
+    full2 = pl.BlockSpec(kf.shape, lambda bi, h, sp: (0, 0))
     if quantized:
-        k_scales = k_scales.reshape(L, hkv, num_pages, 1, page_size)
-        v_scales = v_scales.reshape(L, hkv, num_pages, 1, page_size)
-    dummy_scales = jnp.zeros((1, hkv, 1, 1, 128), sdtype)
-    ks_in = k_scales if quantized else dummy_scales
-    vs_in = v_scales if quantized else dummy_scales
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(b, num_blocks),
-        in_specs=[
-            pl.BlockSpec(
-                (1, hkv, g_pad, d), lambda b_, blk, *refs: (b_, 0, 0, 0)
-            ),
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # score scale
-            pl.BlockSpec(memory_space=pl.ANY),  # k_pages
-            pl.BlockSpec(memory_space=pl.ANY),  # v_pages
-            pl.BlockSpec(memory_space=pl.ANY),  # k_scales
-            pl.BlockSpec(memory_space=pl.ANY),  # v_scales
-        ],
-        out_specs=pl.BlockSpec(
-            (1, hkv, g_pad, d), lambda b_, blk, *refs: (b_, 0, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((hkv, g_pad, 128), jnp.float32),
-            pltpu.VMEM((hkv, g_pad, 128), jnp.float32),
-            pltpu.VMEM((hkv, g_pad, d), jnp.float32),
-            pltpu.VMEM((num_buffers, hkv, d, block_tokens), k_pages.dtype),
-            pltpu.VMEM((num_buffers, hkv, d, block_tokens), v_pages.dtype),
-            pltpu.VMEM((num_buffers, hkv, 1, block_tokens), sdtype),
-            pltpu.VMEM((num_buffers, hkv, 1, block_tokens), sdtype),
-            pltpu.SemaphoreType.DMA((num_buffers, 4)),
-        ],
+        ksf = k_scales.reshape(flat[:1]).astype(jnp.float32)
+        vsf = v_scales.reshape(flat[:1]).astype(jnp.float32)
+        ks_spec = pl.BlockSpec(ksf.shape, lambda bi, h, sp: (0,))
+    tb = tb_spec = None
+    if token_bias is not None:
+        tb = _fit_bias(token_bias, pps_p * page).reshape(b, hkv, group, pps_p * page)
+        tb = jnp.pad(tb, ((0, 0), (0, 0), (0, gp - group), (0, 0)))
+        tb_spec = pl.BlockSpec(
+            (None, None, gp, pps_p * page), lambda bi, h, sp: (bi, h, 0, 0)
+        )
+    part = lambda bi, h, sp: (sp, bi, h, 0)  # noqa: E731
+    kernel = functools.partial(
+        _paged_kernel, sm_scale=float(scale), page=page, block_tokens=bt,
+        pages_per_split=pages_per_split, num_kv_heads=hkv, num_pages=num_pages,
     )
-
-    o = pl.pallas_call(
+    o, m, l = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, hkv, g_pad, d), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interp,
+        grid=(b, hkv, splits),
+        in_specs=[
+            pl.BlockSpec((1,), lambda bi, h, sp: (0,)),
+            pl.BlockSpec((None, 1), lambda bi, h, sp: (bi, 0)),
+            pl.BlockSpec((None, pps_p), lambda bi, h, sp: (bi, 0)),
+            pl.BlockSpec((None, None, gp, dp), lambda bi, h, sp: (bi, h, 0, 0)),
+            full2, full2, ks_spec, ks_spec, tb_spec,
+        ],
+        out_specs=[
+            pl.BlockSpec((None, None, None, gp, dp), lambda bi, h, sp: (sp, bi, h, 0, 0)),
+            pl.BlockSpec((None, None, None, gp), part),
+            pl.BlockSpec((None, None, None, gp), part),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((splits, b, hkv, gp, dp), jnp.float32),
+            jax.ShapeDtypeStruct((splits, b, hkv, gp), jnp.float32),
+            jax.ShapeDtypeStruct((splits, b, hkv, gp), jnp.float32),
+        ],
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        interpret=resolve_interpret(interpret),
+        backend="triton",
+        name="pfa_paged_decode",
     )(
-        layer,
-        lengths,
-        page_indices.reshape(-1),
-        qg,
-        score_scale,
-        k_pages,
-        v_pages,
-        ks_in,
-        vs_in,
+        jnp.reshape(layer, (1,)).astype(jnp.int32),
+        lengths.astype(jnp.int32).reshape(b, 1),
+        pt, qg, kf, vf, ksf, vsf, tb,
     )
-    return o[:, :, :group].reshape(b, hq, d)
+    # Merge the splits (base-2 running max, natural output).
+    m_max = jnp.max(m, axis=0)
+    w = jnp.exp2(m - m_max[None])
+    l_tot = jnp.sum(l * w, axis=0)
+    o = jnp.sum(o * w[..., None], axis=0) / jnp.where(l_tot == 0.0, 1.0, l_tot)[..., None]
+    return o[:, :, :group, :d].reshape(b, hq, d).astype(q.dtype)
 
 
-def _quant_token_write(x: jax.Array):
-    """Per-token int8 quantization for pool writes. x: (B, H, D)."""
+# ---------------------------------------------------------------------------
+# Pool writes
+# ---------------------------------------------------------------------------
+
+
+def quantize_tokens(x: jax.Array) -> Tuple[jax.Array, jax.Array]:
+    """Per-token symmetric int8. x: (..., D) -> (int8 payload, fp32 scales)."""
     absmax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1)
-    scale = jnp.where(absmax == 0.0, 1.0, absmax / 127.0)
+    scale = jnp.where(absmax == 0.0, 1.0, absmax / INT8_MAX)
     payload = jnp.clip(
-        jnp.round(x.astype(jnp.float32) / scale[..., None]), -127.0, 127.0
+        jnp.round(x.astype(jnp.float32) / scale[..., None]), -INT8_MAX, INT8_MAX
     ).astype(jnp.int8)
     return payload, scale
 
 
-def paged_attention_auto(
-    q: jax.Array,
-    k_pages: jax.Array,
-    v_pages: jax.Array,
-    lengths: jax.Array,
-    page_indices: jax.Array,
-    k_scales: Optional[jax.Array] = None,
-    v_scales: Optional[jax.Array] = None,
-    *,
-    sm_scale: Optional[float] = None,
-    pages_per_block: int = 4,
-    layer: Optional[jax.Array] = None,
-) -> jax.Array:
-    """Backend-aware dispatch: the Pallas DMA kernel on TPU when the page
-    layout allows it (page_size % 128 == 0), the XLA gather otherwise.
+def write_tokens(
+    pool: Dict[str, jax.Array],
+    k_new: jax.Array,  # (N, Hkv, D)
+    v_new: jax.Array,
+    flat_slots: jax.Array,  # (N,) page * page_size + offset
+    layer: jax.Array,  # scalar layer index
+    quantized: bool,
+) -> Dict[str, jax.Array]:
+    """Scatter N tokens' K/V into the multi-layer pool dict.
 
-    The choice happens at trace time (shapes/backend are static under
-    jit), mirroring the engine's kernel registry dispatch
-    (core/engine.py) for the decode path. Pools may carry a leading
-    layer axis (rank 5) with a scalar ``layer`` index — see
-    :func:`paged_attention`.
+    ``pool`` holds ``k``/``v`` (L, Hkv, P, page, D) and, when quantized,
+    ``ks``/``vs`` (L, Hkv, P, page). Each array is viewed as rows of one
+    token and head (a free reshape) and written by row index, the scatter
+    form XLA updates in place: indexing the 5-D pool directly makes XLA
+    transpose the whole pool around the scatter.
     """
-    page_size = k_pages.shape[-1]
-    quantized = k_scales is not None
-    if jax.default_backend() == "tpu" and page_size % 128 == 0:
-        return paged_attention(
-            q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
-            sm_scale=sm_scale, pages_per_block=pages_per_block,
-            interpret=False, layer=layer,
-        )
-    if k_pages.ndim == 5:
-        # XLA fallback works on one layer's slice (CPU/tests only — the
-        # dynamic slice materializes a layer-sized copy).
-        lyr = jnp.reshape(layer, ())
-        k_pages = jax.lax.dynamic_index_in_dim(k_pages, lyr, 0, keepdims=False)
-        v_pages = jax.lax.dynamic_index_in_dim(v_pages, lyr, 0, keepdims=False)
+    pool = dict(pool)
+    n_layers, hkv, num_pages, page, d = pool["k"].shape
+    heads = jnp.arange(hkv, dtype=jnp.int32)[None, :]
+    pids = (flat_slots // page).astype(jnp.int32)[:, None]
+    offs = (flat_slots % page).astype(jnp.int32)[:, None]
+    rows = (((layer * hkv + heads) * num_pages + pids) * page + offs).reshape(-1)
+
+    def put(name, val, row_shape):
+        arr = pool[name]
+        flat = arr.reshape((-1,) + row_shape)
+        val = val.reshape((-1,) + row_shape).astype(arr.dtype)
+        pool[name] = flat.at[rows].set(val).reshape(arr.shape)
+
+    if quantized:
+        k8, ks = quantize_tokens(k_new)
+        v8, vs = quantize_tokens(v_new)
+        put("k", k8, (d,))
+        put("v", v8, (d,))
+        put("ks", ks, ())
+        put("vs", vs, ())
+    else:
+        put("k", k_new, (d,))
+        put("v", v_new, (d,))
+    return pool
+
+
+def gather_history(
+    pool: Dict[str, jax.Array],
+    page_tables: jax.Array,  # (B, pages_per_seq)
+    layer: jax.Array,
+    n_pages: int,
+    quantized: bool,
+) -> Tuple[jax.Array, jax.Array]:
+    """Dense (B, n_pages * page, Hkv, D) K/V of each row's first pages,
+    dequantized to fp32 when the pool is int8."""
+    pt = page_tables[:, :n_pages]
+
+    def gather(name, sname):
+        g = pool[name][layer][:, pt]  # (Hkv, B, n, page, D)
+        hkv, b, n, pg, d = g.shape
+        g = g.transpose(1, 2, 3, 0, 4).reshape(b, n * pg, hkv, d)
         if quantized:
-            k_scales = jax.lax.dynamic_index_in_dim(k_scales, lyr, 0, keepdims=False)
-            v_scales = jax.lax.dynamic_index_in_dim(v_scales, lyr, 0, keepdims=False)
-    return paged_attention_xla(
-        q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
-        sm_scale=sm_scale,
-    )
+            sc = pool[sname][layer][:, pt]  # (Hkv, B, n, page)
+            sc = sc.transpose(1, 2, 3, 0).reshape(b, n * pg, hkv)
+            return g.astype(jnp.float32) * sc[..., None]
+        return g
+
+    return gather("k", "ks"), gather("v", "vs")

@@ -1,13 +1,10 @@
-"""Shared helpers for Pallas TPU kernels."""
+"""Shared helpers for the Pallas kernels (Triton route)."""
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
-import jax
-
-NUM_LANES = 128
+from .. import platform
 
 
 def cdiv(a: int, b: int) -> int:
@@ -18,39 +15,39 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-@functools.lru_cache(maxsize=1)
-def default_backend() -> str:
-    return jax.default_backend()
+def next_pow2(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
 
 
 def resolve_interpret(interpret: Optional[bool]) -> bool:
-    """Kernels run compiled on TPU, interpreted elsewhere (CPU tests).
+    """Kernels run compiled on the GPU and in the interpreter on the CPU.
 
-    This is how the package "tests multi-device without a cluster": the
-    test suite forces ``JAX_PLATFORMS=cpu`` with 8 virtual devices and all
-    Pallas kernels transparently fall back to interpreter mode (the
-    analogue of the reference's ``PHOTONIC_SIMULATION=1`` conftest switch,
-    reference tests/conftest.py:11).
+    ``None`` asks the platform module. An explicit ``True`` is accepted
+    only where the interpreter is the platform's mode: the interpreter
+    must never stand in for the compiled kernel on the GPU.
     """
-    if interpret is not None:
-        return interpret
-    return default_backend() != "tpu"
+    interp = platform.interpret_kernels()
+    if interpret is None:
+        return interp
+    if interpret and not interp:
+        raise ValueError(
+            "interpret=True is refused on the GPU: kernels run compiled there"
+        )
+    return bool(interpret)
 
 
 def dropout_keep(seed, rows, cols, kv_stride: int, rate: float, bh=None):
-    """Deterministic positional dropout mask — layout/block independent.
+    """Deterministic positional dropout mask, independent of layout and tiles.
 
-    A murmur3-style 32-bit finalizer over the GLOBAL (batch*heads + head,
+    A murmur3-style 32-bit finalizer over the global (batch*heads + head,
     q_row, kv_col) position and a seed. Because the mask depends only on
-    position, the forward kernel, the Pallas backward (which works in the
-    transposed score domain), and the XLA blockwise backward (different
-    block sizes) all regenerate byte-identical masks — no (Sq, Skv) mask
-    tensor ever exists in HBM.
+    position, the forward kernel, the backward kernels (other tile
+    sizes) and the XLA paths all regenerate identical masks, and no
+    (Sq, Skv) mask tensor ever exists in device memory.
 
-    ``bh`` (the flattened batch-head index) makes masks i.i.d. per
-    (batch, head), matching the reference's nn.Dropout draw
-    (reference core/flash_attention_3.py:174-175); omitting it would
-    drop the same positions for every batch element and head.
+    ``bh`` (the flattened batch-head index) makes masks independent per
+    (batch, head), like a dropout layer's draw; omitting it would drop
+    the same positions for every batch element and head.
 
     Args:
       seed: traced int32/uint32 scalar.

@@ -1,9 +1,9 @@
 """Block quantization for attention activations and the KV cache.
 
-The TPU rebirth of the reference's simulated analog quantization — the
+The rebirth of the reference's simulated analog quantization — the
 6-bit modulator encode/decode in ``encode_to_optical``/``decode_from_optical``
 (reference photonic/optical_kernels/matrix_mult.py:161-276) — as *real*
-low-precision formats the MXU executes natively:
+low-precision formats the tensor cores execute natively:
 
 * FP8 (e4m3) per-block scaled tensors for QKV score matmuls,
 * INT8 per-block scaled tensors for the KV cache payload,

@@ -3,10 +3,9 @@
 Pure-``jnp`` analogues of the reference's two forward paths
 (reference core/flash_attention_3.py:152-180 ``_standard_attention`` and
 :182-262 ``_tiled_attention`` online-softmax). These are the correctness
-anchors for every Pallas kernel in this package: kernels must match
+anchors for every kernel in this package: kernels must match
 ``attention_reference`` to tight tolerances, and ``attention_blockwise``
-demonstrates the tiling recurrence in plain JAX (it is also the fallback
-path on non-TPU backends).
+demonstrates the tiling recurrence in plain JAX.
 
 Shape convention: (batch, seq, num_heads, head_dim) at the API boundary —
 the natural layout for JAX transformer stacks.

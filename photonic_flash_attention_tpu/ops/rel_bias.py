@@ -8,11 +8,11 @@ speedup, README.md:663). Materializing that bias at S=8192 costs
 H * S^2 * 4 bytes ≈ 4 GB — it cannot ride along into a tiled kernel as an
 HBM tensor.
 
-TPU-native answer: T5's bias is a *function of (col - row)* through a
+The answer here: T5's bias is a *function of (col - row)* through a
 32-entry learned table, and ALiBi is linear in (col - row). Both are
-recomputable from ``broadcasted_iota`` inside each score tile for free in
-HBM terms: the kernel carries only the (num_buckets, H) table in SMEM and
-rebuilds the per-tile bias on the VPU. This file holds the bias *specs*
+recomputable from iota inside each score tile for free in memory terms:
+the kernel carries only one head's row of the table and rebuilds the
+per-tile bias in registers. This file holds the bias *specs*
 (small dataclasses the kernels and models share) and the pure-jnp bucket
 math used by both the Pallas kernel and the XLA oracle/backward paths.
 """
@@ -37,7 +37,7 @@ def relative_position_bucket(
     """T5's log-binned relative-position bucketing (public algorithm from
     the T5 paper; matches HF ``_relative_position_bucket`` exactly).
 
-    Pure jnp on int32 arrays — safe both in XLA and inside Mosaic kernels
+    Pure jnp on int32 arrays — safe both in XLA and inside Pallas kernels
     (elementwise compare/log/select on a 2D tile).
     """
     ret = jnp.zeros_like(relative_position)

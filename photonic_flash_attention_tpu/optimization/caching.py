@@ -5,15 +5,15 @@ The rebirth of the reference's two cache stacks:
 * ``ResultCache`` + ``cached_computation`` — reference
   scaling/cache_manager.py:32-631 (LRU/LFU/TTL eviction, computation
   results keyed on tensor shapes/dtypes + scalar args, hit/miss stats).
-  On TPU the *useful* result cache is host-side memoization of pure
+  The *useful* result cache is host-side memoization of pure
   computations on identical inputs (calibration sweeps, routing probes),
   not activation caching — kept deliberately small and explicit.
 * ``CompileCacheManager`` — the reference's multi-level tensor cache
-  (optimization/advanced_caching.py:27-879) has no TPU analogue worth
+  (optimization/advanced_caching.py:27-879) has no device analogue worth
   faking, but its *purpose* (avoid recomputing expensive artifacts) maps
   exactly to XLA's persistent compilation cache: enabling it makes every
   kernel/model compile a disk artifact reusable across processes — the
-  single highest-value cache on TPU.
+  single highest-value cache here.
 """
 
 from __future__ import annotations
@@ -171,13 +171,28 @@ def cached_computation(cache: Optional[ResultCache] = None):
     return deco
 
 
+#: The checkout (or install) root: the parent of the package directory.
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def compile_cache_dir() -> str:
+    """Where the persistent XLA cache lives.
+
+    ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX reads it too);
+    otherwise the fixed ``.jax_cache/`` at the root of the checkout. A
+    fixed path matters: the path is part of the cache key, so a directory
+    that moves never hits.
+    """
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _ROOT, ".jax_cache"
+    )
+
+
 class CompileCacheManager:
     """Persistent XLA compilation cache (the real multi-level cache win)."""
 
-    def __init__(self, cache_dir: Optional[str] = None) -> None:
-        self.cache_dir = cache_dir or os.environ.get(
-            "PFA_COMPILE_CACHE", os.path.expanduser("~/.cache/pfa_tpu/xla")
-        )
+    def __init__(self) -> None:
+        self.cache_dir = compile_cache_dir()
         self.enabled = False
 
     def enable(self) -> None:
@@ -333,3 +348,10 @@ class MultiLevelCacheManager:
             "l2": {"entries": len(self.l2), **self.l2.stats.as_dict()},
             "l3": {"entries": len(self.l3), **self.l3.stats.as_dict()},
         }
+
+
+def enable_compile_cache() -> str:
+    """Turn on the persistent compile cache; returns its directory."""
+    m = CompileCacheManager()
+    m.enable()
+    return m.cache_dir

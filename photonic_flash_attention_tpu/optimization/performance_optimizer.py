@@ -6,7 +6,7 @@ workload classification into inference/training/batch/streaming,
 :117-246) and ``AdaptiveOptimizer.optimize_operation`` (profile + cache
 wrapper, :354-499), plus the ``@optimize_function`` decorator (:509+).
 
-On TPU the honest additions are: wall-time measured with completion
+The honest additions are: wall-time measured with completion
 forcing (see bench.py), and ``jax.profiler`` trace hooks for deep dives.
 """
 

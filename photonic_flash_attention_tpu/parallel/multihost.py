@@ -3,14 +3,15 @@
 The reference *names* a distributed backend and never initializes it
 (reference scaling/distributed_computing.py:98-99: 'nccl'/'gloo'/
 'tensorpipe' strings; ``init_process_group`` never called — SURVEY.md
-§0.3). This module is the real thing for TPU pods:
+§0.3). This module is the real thing for multi-host GPU clusters:
 
 * ``initialize_multihost`` — ``jax.distributed.initialize`` with
   environment autodetection (no-op on single-process / already-initialized
   runtimes),
 * ``pod_mesh`` — a device mesh spanning all hosts, DCN-major ordering so
-  cross-slice axes ride DCN and intra-slice axes ride ICI (uses
-  ``mesh_utils.create_hybrid_device_mesh`` when multiple slices exist).
+  axes that cross hosts ride the data-center network and the rest stay
+  inside a host (uses ``mesh_utils.create_hybrid_device_mesh`` when
+  several processes exist).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def initialize_multihost(
 ) -> dict:
     """Initialize cross-host JAX runtime; safe to call on one host.
 
-    Autodetects from standard env (JAX_COORDINATOR_ADDRESS / TPU metadata)
+    Reads the coordinator from the standard env (JAX_COORDINATOR_ADDRESS)
     when args are omitted; returns a summary dict.
     """
     global _initialized
@@ -54,7 +55,7 @@ def initialize_multihost(
             )
             _initialized = True
         except (RuntimeError, ValueError) as e:
-            # already initialized (e.g. by the TPU runtime) is fine
+            # already initialized (e.g. by a launcher) is fine
             if "already" not in str(e).lower():
                 raise DistributionError(f"multihost init failed: {e}") from e
             _initialized = True
@@ -75,8 +76,9 @@ def pod_mesh(
     """Mesh over every device in the pod slice.
 
     ``dcn_axis`` names the axis that crosses hosts (data-parallel is the
-    usual choice — gradients cross DCN once per step; everything else
-    stays on ICI). With one process this reduces to a normal device mesh.
+    usual choice — gradients cross hosts once per step; everything else
+    stays on the in-host links). With one process this reduces to a
+    normal device mesh.
     """
     n = jax.device_count()
     shapes = list(axis_shapes)
@@ -91,7 +93,7 @@ def pod_mesh(
         idx = list(axis_names).index(dcn_axis)
         dcn = [1] * len(shapes)
         ici = list(shapes)
-        # cross-host replicas on the dcn axis; remaining extent stays ICI
+        # cross-host replicas on the dcn axis; the rest stays in-host
         per_host = shapes[idx] // jax.process_count()
         if per_host * jax.process_count() != shapes[idx]:
             raise DistributionError(

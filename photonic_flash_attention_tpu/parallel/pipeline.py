@@ -2,7 +2,7 @@
 
 The reference imports ``torch.distributed.pipeline.sync.Pipe`` and never
 uses it (reference scaling/distributed_computing.py:14; SURVEY.md §2.5
-"PP: imported, unused"). This is the real thing, TPU-style: layer groups
+"PP: imported, unused"). This is the real thing: layer groups
 shard onto a ``stage`` mesh axis, activations flow stage-to-stage with
 ``jax.lax.ppermute`` inside a ``fori_loop`` running the classic GPipe
 schedule (M microbatches over S stages in M + S - 1 ticks, with the

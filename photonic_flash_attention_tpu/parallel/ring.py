@@ -7,7 +7,7 @@ collective ever runs — SURVEY.md §2.5). This module is the real thing:
 * K/V live sequence-sharded on a ``seq`` mesh axis; each step every
   device computes flash attention of its local Q shard against the KV
   block currently resident, then rotates KV to its ring neighbor with
-  ``jax.lax.ppermute`` — point-to-point on ICI, overlapped by XLA with
+  ``jax.lax.ppermute`` — point-to-point over NVLink, overlapped by XLA with
   the next step's compute.
 * Partial results merge by logsumexp (the cross-device form of the same
   online-softmax recurrence the reference's ``_tiled_attention`` runs

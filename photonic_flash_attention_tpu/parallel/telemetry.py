@@ -5,7 +5,8 @@ The rebirth of the photonic NoC simulator's *observable* surface
 utilization stats, congestion detection at >= 0.8 utilization, delivery
 stats) for real XLA collectives: every instrumented collective call site
 records bytes moved per (mesh axis, op), utilization is estimated against
-the chip generation's ICI bandwidth, and the congestion threshold drives
+the card-to-card link bandwidth (``platform.device_peaks``), and the
+congestion threshold drives
 the same adapt/alert behavior the reference's ``adapt_routing`` had.
 
 Byte accounting is host-side and analytic (collectives execute inside
@@ -25,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import jax
 import numpy as np
 
-from ..hardware.detection import get_best_tpu_device
+from .. import platform
 from ..utils.logging import get_logger
 
 logger = get_logger("telemetry")
@@ -58,7 +59,7 @@ class AxisStats:
     window_start: float = dataclasses.field(default_factory=time.time)
     window_bytes: int = 0
     # Analytic minimum seconds of link busy time for the window's traffic
-    # (bytes / full ICI bandwidth). The honest denominator-free quantity:
+    # (bytes / full link bandwidth). The honest denominator-free quantity:
     # wall-clock of the *recording* loop says nothing about transfer
     # duration (records happen host-side, often at trace time).
     window_busy_s: float = 0.0
@@ -69,11 +70,10 @@ class CollectiveTelemetry:
 
     WINDOW_S = 10.0
 
-    def __init__(self, ici_gbps: Optional[float] = None) -> None:
-        if ici_gbps is None:
-            dev = get_best_tpu_device()
-            ici_gbps = dev.capabilities.ici_gbps if dev else 100.0
-        self.ici_gbps = max(ici_gbps, 1e-3)
+    def __init__(self, link_gbps: Optional[float] = None) -> None:
+        if link_gbps is None:
+            link_gbps = platform.device_peaks().link_bytes_per_s / 1e9
+        self.link_gbps = max(link_gbps, 1e-3)
         self._axes: Dict[str, AxisStats] = defaultdict(AxisStats)
         self._lock = threading.RLock()
         self._congestion_events = 0
@@ -92,7 +92,7 @@ class CollectiveTelemetry:
                 st.window_bytes = 0
                 st.window_busy_s = 0.0
             st.window_bytes += moved
-            st.window_busy_s += moved / (self.ici_gbps * 1e9)
+            st.window_busy_s += moved / (self.link_gbps * 1e9)
             if self.utilization(axis) >= CONGESTION_THRESHOLD:
                 self._congestion_events += 1
                 # Rate-limit to one log line per window per axis — a hot
@@ -100,21 +100,12 @@ class CollectiveTelemetry:
                 # (observed flooding the multichip dryrun log in round 1).
                 if now - self._last_congestion_log.get(axis, 0.0) > self.WINDOW_S:
                     self._last_congestion_log[axis] = now
-                    # On a virtual/CPU mesh the ICI model is meaningless
-                    # (there is no ICI); a fake congestion WARNING in the
-                    # dryrun channel the driver reads is noise — log it
-                    # as info there, warning only on real TPU meshes
-                    # (VERDICT r4 weak #8).
-                    import jax
-
-                    level = (
-                        logger.warning
-                        if jax.default_backend() == "tpu"
-                        else logger.info
-                    )
+                    # On a virtual CPU mesh the link model is meaningless
+                    # (there is no link): info there, warning on cards.
+                    level = logger.warning if platform.on_gpu() else logger.info
                     level(
                         "axis %s congested (analytic estimate: recorded "
-                        "traffic needs %.0f%% of ICI link time this window)",
+                        "traffic needs %.0f%% of link time this window)",
                         axis,
                         100 * self.utilization(axis),
                     )
@@ -123,7 +114,7 @@ class CollectiveTelemetry:
         """Analytic link busy fraction over the current window, in [0, 1].
 
         ``window_busy_s`` is the minimum time the window's recorded bytes
-        would occupy the link at full ICI bandwidth; the denominator is
+        would occupy the link at full bandwidth; the denominator is
         the window wall-clock, floored by the busy time itself (a link
         cannot be busy for longer than the elapsed time it was busy).
         This is an *analytic estimate* — XLA exposes no per-collective
@@ -144,10 +135,10 @@ class CollectiveTelemetry:
     def get_stats(self) -> Dict:
         with self._lock:
             return {
-                "ici_gbps": self.ici_gbps,
+                "link_gbps": self.link_gbps,
                 "congestion_events": self._congestion_events,
                 "utilization_note": (
-                    "analytic lower-bound busy fraction (bytes / ICI "
+                    "analytic lower-bound busy fraction (bytes / link "
                     "bandwidth vs window wall-clock), capped at 1.0"
                 ),
                 "axes": {

@@ -8,7 +8,7 @@ sequence to heads, every device then runs ordinary (single-device,
 Pallas flash) attention over the FULL sequence for its head subset, and
 a second ``all_to_all`` swaps back.
 
-Trade-off vs ring: two bulk all-to-alls (ICI-friendly, one shot each
+Trade-off vs ring: two bulk all-to-alls (suits all-to-all NVLink, one shot each
 way) instead of n-1 ppermute steps, full-sequence flash locality, but it
 requires ``num_heads % axis_size == 0`` and peak memory holds the whole
 sequence per device. The router-level guidance from the scaling

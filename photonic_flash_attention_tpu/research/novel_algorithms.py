@@ -2,7 +2,7 @@
 
 The rebirth of reference research/novel_algorithms.py:33-1631 — three
 novel attention mechanisms and a benchmark framework — re-derived with
-math that is real on TPU (jnp/flax; FFTs, pooling pyramids, complex
+math that is real on the device (jnp/flax; FFTs, pooling pyramids, complex
 inner products all lower to XLA):
 
 * ``QuantumInspiredAttention`` (reference PhotonicQuantumAttention
@@ -27,10 +27,14 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+try:
+    import flax.linen as nn
+except ImportError as e:  # pragma: no cover - depends on the environment
+    raise ImportError("the research attention modules need flax (pip install flax)") from e
 
 from ..ops.fused import fused_attention
 

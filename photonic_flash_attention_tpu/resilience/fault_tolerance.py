@@ -4,9 +4,9 @@ The rebirth of reference resilience/fault_tolerance.py:27-1113:
 
 * ``GracefulDegradationManager`` (reference :201-328) — trigger ->
   config-rewrite table. The reference rewrote optical knobs
-  (photonic-failure->gpu_only, thermal->reduce optical power); the TPU
+  (photonic-failure->gpu_only, thermal->reduce optical power); this
   ladder rewrites real engine knobs: quantization accuracy failure ->
-  raise precision (int8/fp8 -> bf16), memory pressure -> shrink batch /
+  raise precision (int8 -> bf16), memory pressure -> shrink batch /
   evict KV pages, latency SLO breach -> drop to the cheaper kernel,
   kernel failure -> pin the fused XLA path.
 * ``ResilientAttentionWrapper`` (reference :939-1113) — composes circuit

@@ -21,10 +21,11 @@ from ..utils.logging import get_logger
 
 logger = get_logger("autoscaler")
 
-#: per-replica cost model, $/hour (public on-demand list prices, rounded)
-REPLICA_COST_PER_HOUR = {"v5e-1": 1.2, "v5e-4": 4.8, "v5p-1": 4.2, "v6e-1": 2.7}
+#: per-replica cost model, $/hour: a placeholder per card, times cards;
+#: a deployment sets its own prices.
+REPLICA_COST_PER_HOUR = {"h100-1": 3.0, "h100-4": 12.0, "h100-8": 24.0}
 #: startup-time model, seconds (reference :835-839's startup-time analogue)
-REPLICA_STARTUP_S = {"v5e-1": 120.0, "v5e-4": 180.0, "v5p-1": 240.0, "v6e-1": 150.0}
+REPLICA_STARTUP_S = {"h100-1": 120.0, "h100-4": 150.0, "h100-8": 180.0}
 
 
 @dataclasses.dataclass
@@ -52,7 +53,7 @@ class AutoScalingOrchestrator:
         self,
         min_replicas: int = 1,
         max_replicas: int = 16,
-        replica_type: str = "v5e-1",
+        replica_type: str = "h100-1",
         scale_up_threshold: float = 0.8,
         scale_down_threshold: float = 0.3,
         cooldown_s: float = 60.0,

@@ -3,7 +3,7 @@
 The reference has no training path at all — ``enable_checkpointing`` is a
 config flag that nothing reads (reference core/autonomous_optimizer.py:354)
 and no optimizer step exists anywhere. A complete framework needs one, so
-this package provides the TPU-idiomatic training tier: pjit-sharded train
+this package provides the training tier: pjit-sharded train
 steps over a (data, model) mesh, gradient accumulation via ``lax.scan``,
 rematerialized (checkpointed) blocks, loss-scale-free bf16 master-weight
 mixed precision, and a host-side prefetching data pipeline.

@@ -1,6 +1,6 @@
 """Host-side data pipeline: background prefetch + device placement.
 
-TPU-idiomatic input handling: batches are prepared on the host by a
+Input handling: batches are prepared on the host by a
 worker thread (tokenize/pack/shuffle are host work), staged into a small
 bounded queue, and transferred to device asynchronously so step N+1's
 input is already on-chip when step N finishes. This is the honest

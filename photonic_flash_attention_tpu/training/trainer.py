@@ -1,6 +1,6 @@
 """Sharded trainer: pjit train steps, grad accumulation, remat, eval.
 
-Design (TPU-first):
+Design:
 * One compiled ``train_step`` over a ``Mesh`` — params sharded by the
   model family's ``param_sharding_rules`` (tensor parallel), batch
   sharded on the ``data`` axis; XLA inserts the gradient all-reduces
@@ -10,7 +10,7 @@ Design (TPU-first):
 * ``remat`` applies ``jax.checkpoint`` to the loss to trade FLOPs for
   HBM on long sequences.
 * Params are kept in fp32 (master weights); compute dtype is whatever
-  the model was built with (bf16 models need no loss scaling on TPU).
+  the model was built with (bf16 models need no loss scaling).
 """
 
 from __future__ import annotations
@@ -155,7 +155,7 @@ class Trainer:
     """Mesh-sharded training loop with metrics and checkpoint hooks.
 
     Args:
-      model: a Flax module with ``apply``.
+      model: a model with ``init``/``apply`` (``models.functional``).
       tx: optax transformation.
       mesh: optional ``Mesh``; when given, params are placed by
         ``param_specs`` (a PartitionSpec tree, e.g. from

@@ -1,8 +1,9 @@
-"""Typed exception hierarchy for the TPU attention engine.
+"""Typed exception hierarchy for the attention engine.
 
 Mirrors the reference's hierarchy rooted at ``PhotonicFlashAttentionError``
 (reference src/.../utils/exceptions.py:4-121), with hardware/thermal errors
-re-expressed for TPU concerns (compilation, kernel, memory, distribution).
+re-expressed for accelerator concerns (compilation, kernel, memory,
+distribution).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ class ValidationError(PhotonicFlashAttentionError):
 
 
 class HardwareError(PhotonicFlashAttentionError):
-    """TPU device unavailable / failed (reference: PhotonicHardwareError)."""
+    """Device unavailable / failed (reference: PhotonicHardwareError)."""
 
     def __init__(self, message: str, device_id: Optional[str] = None, **context: Any) -> None:
         super().__init__(message, device_id=device_id, **context)
@@ -50,7 +51,7 @@ class ComputationError(PhotonicFlashAttentionError):
 
 
 class CompilationError(PhotonicFlashAttentionError):
-    """XLA/Mosaic compilation failure for a kernel variant."""
+    """XLA/Triton compilation failure for a kernel variant."""
 
 
 class MemoryError_(PhotonicFlashAttentionError):

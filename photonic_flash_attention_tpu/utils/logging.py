@@ -1,6 +1,6 @@
 """Structured logging for the engine.
 
-TPU rebirth of reference utils/logging.py:14-259: namespaced loggers, a
+The rebirth of reference utils/logging.py:14-259: namespaced loggers, a
 text/JSON structured formatter, a ``PerformanceLogger`` timer helper, and
 env-driven setup (``PFA_LOG_LEVEL`` / ``PFA_LOG_FILE`` / ``PFA_LOG_JSON``).
 """
@@ -15,7 +15,7 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional
 
-_ROOT_NAME = "pfa_tpu"
+_ROOT_NAME = "pfa"
 _configured = False
 
 

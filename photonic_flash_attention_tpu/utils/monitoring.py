@@ -2,7 +2,7 @@
 
 Rebirth of reference utils/monitoring.py:9-90 (metric rings) and the
 thermal/health monitors' *measurement surface* (reference
-monitoring/thermal_monitor.py, health_monitor.py) mapped to real TPU
+monitoring/thermal_monitor.py, health_monitor.py) mapped to real device
 signals: HBM usage from ``jax.Device.memory_stats()`` and step latencies
 from the engine. The state machine lives in ``core.health``.
 """

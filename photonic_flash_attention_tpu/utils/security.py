@@ -3,7 +3,7 @@
 The rebirth of the reference's security stack (reference
 utils/security.py:22-633, utils/simple_security.py:56-622,
 security/advanced_validation.py:68-793), trimmed to the mechanisms that
-protect a real TPU serving path:
+protect a real serving path:
 
 * tensor/input sanitization — size caps, dtype allow-list, NaN/Inf
   screening (the reference's "optical safety limits" become resource

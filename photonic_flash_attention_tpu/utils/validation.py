@@ -1,6 +1,6 @@
 """Input validation for attention calls and engine configs.
 
-TPU rebirth of reference utils/validation.py:21-685 — shape/dtype/range
+The rebirth of reference utils/validation.py:21-685 — shape/dtype/range
 checks on attention inputs, sequence/batch caps, finiteness gates, and
 kernel-config sanity checks (block-size alignment replaces the reference's
 optical power-budget/wavelength checks).
@@ -27,7 +27,6 @@ _ALLOWED_DTYPES = (
     jnp.float16,
 )
 
-_LANE = 128  # TPU lane width; last-dim alignment target.
 
 
 def validate_attention_inputs(
@@ -80,17 +79,18 @@ def validate_attention_inputs(
 
 
 def validate_block_config(block_q: int, block_kv: int, head_dim: int) -> None:
-    """Kernel tiling sanity (replaces optical power/wavelength checks)."""
+    """Kernel tiling sanity (replaces optical power/wavelength checks):
+    Triton tiles are powers of two of at least 16."""
     for name, v in (("block_q", block_q), ("block_kv", block_kv)):
-        if v <= 0 or v % _LANE != 0:
-            raise ValidationError(f"{name}={v} must be a positive multiple of {_LANE}")
+        if v < 16 or v & (v - 1):
+            raise ValidationError(f"{name}={v} must be a power of two >= 16")
     if head_dim <= 0:
         raise ValidationError(f"head_dim={head_dim} must be positive")
 
 
 def validate_quant_mode(mode: str) -> str:
-    if mode not in ("bf16", "fp8", "int8"):
-        raise ValidationError(f"quant_mode must be bf16|fp8|int8, got {mode!r}")
+    if mode not in ("bf16", "int8"):
+        raise ValidationError(f"quant_mode must be bf16|int8, got {mode!r}")
     return mode
 
 

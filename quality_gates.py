@@ -99,23 +99,32 @@ def gate_quant_budget():
     import jax.numpy as jnp
     import numpy as np
 
-    from photonic_flash_attention_tpu.ops.flash_fp8 import flash_attention_quant
-    from photonic_flash_attention_tpu.ops.reference import attention_reference
+    from photonic_flash_attention_tpu.ops.paged import (
+        paged_attention,
+        paged_attention_xla,
+        write_tokens,
+    )
 
     rng = np.random.default_rng(0)
-    q = jnp.asarray(rng.standard_normal((1, 256, 4, 64)), jnp.float32)
-    k = jnp.asarray(rng.standard_normal((1, 256, 4, 64)), jnp.float32)
-    v = jnp.asarray(rng.standard_normal((1, 256, 4, 64)), jnp.float32)
-    ref, _ = attention_reference(q, k, v, causal=True)
-    errs = {}
-    for mode in ("fp8", "int8"):
-        out = flash_attention_quant(
-            q, k, v, causal=True, qdtype=mode, block_q=128, block_kv=128
-        )
-        errs[mode] = float(jnp.linalg.norm(out - ref) / jnp.linalg.norm(ref))
+    b, hkv, hq, d, page, n_pages = 2, 2, 4, 64, 16, 17
+    q = jnp.asarray(rng.standard_normal((b, hq, d)), jnp.float32)
+    kv = jnp.asarray(rng.standard_normal((n_pages * page, hkv, d)), jnp.float32)
+    slots = jnp.arange(n_pages * page, dtype=jnp.int32)
+    lens = jnp.asarray([100, 128], jnp.int32)
+    pt = jnp.arange(1, n_pages, dtype=jnp.int32).reshape(b, -1)
+    shape = (1, hkv, n_pages, page, d)
+    f32 = write_tokens({"k": jnp.zeros(shape), "v": jnp.zeros(shape)}, kv, kv, slots, 0, False)
+    i8 = write_tokens(
+        {"k": jnp.zeros(shape, jnp.int8), "v": jnp.zeros(shape, jnp.int8),
+         "ks": jnp.ones(shape[:-1]), "vs": jnp.ones(shape[:-1])},
+        kv, kv, slots, 0, True,
+    )
+    ref = paged_attention_xla(q, f32["k"], f32["v"], lens, pt, layer=0)
+    out = paged_attention(q, i8["k"], i8["v"], lens, pt, i8["ks"], i8["vs"], layer=0)
+    err = float(jnp.linalg.norm(out - ref) / jnp.linalg.norm(ref))
     # Reference gate: relative error < 0.1
     # (reference tests/performance/test_benchmarks.py:280)
-    return all(e < 0.1 for e in errs.values()), {"rel_err": errs, "gate": 0.1}
+    return err < 0.1, {"int8_kv_rel_err": err, "gate": 0.1}
 
 
 def gate_unit_tests(full: bool):

@@ -78,9 +78,9 @@ class TestEngine:
         mask = jnp.broadcast_to(keep[:, None, None, :], (3, 1, 1024, 1024))
         eng = AttentionEngine(router=AdaptiveRouter(exploration_rate=0.0, seed=0))
         out, _ = eng(q, k, v, mask)
-        # Round 5: key padding rides the unrolled flash kernel (in-kernel
-        # bias form) — the point is it is NOT the O(S^2) fused path.
-        assert eng.last_kernel_used == "flash_unrolled"
+        # Key padding rides the flash kernel (kv_lens/k_bias in-kernel) —
+        # the point is it is NOT the O(S^2) fused path.
+        assert eng.last_kernel_used == "flash"
         ref, _ = attention_reference(q, k, v, mask)
         assert_close(out, ref)
 
@@ -92,7 +92,7 @@ class TestEngine:
         mask = jnp.asarray(km)[:, None, None, :]
         eng = AttentionEngine(router=AdaptiveRouter(exploration_rate=0.0, seed=0))
         out, _ = eng(q, k, v, mask)
-        assert eng.last_kernel_used == "flash_unrolled"
+        assert eng.last_kernel_used == "flash"
         ref, _ = attention_reference(q, k, v, mask)
         assert_close(out, ref)
 
@@ -103,7 +103,7 @@ class TestEngine:
         lens = jnp.asarray([800, 513], jnp.int32)
         eng = AttentionEngine(router=AdaptiveRouter(exploration_rate=0.0, seed=0))
         out, _ = eng(q, k, v, kv_lens=lens)
-        assert eng.last_kernel_used == "flash_unrolled"
+        assert eng.last_kernel_used == "flash"
         keep = jnp.arange(1024)[None] < lens[:, None]
         ref, _ = attention_reference(q, k, v, keep[:, None, None, :])
         assert_close(out, ref)
@@ -115,9 +115,8 @@ class TestEngine:
         for _ in range(6):
             eng(q, k, v)
             used.add(eng.last_kernel_used)
-        # Round 5 adds the unrolled kernel to the mask-free registry;
-        # warmup measures every eligible kind before exploiting.
-        assert used == {"fused", "flash", "flash_unrolled"}
+        # Warmup measures every eligible kind before exploiting.
+        assert used == {"fused", "flash"}
 
     def test_stats_surface(self, rng):
         q, k, v = make_qkv(rng)
@@ -138,9 +137,7 @@ class TestEngine:
         assert eng.last_kernel_used == "fused"
         q, k, v = make_qkv(rng, s=512)
         eng(q, k, v)
-        # Round 5: the heuristic prefers the unrolled kernel inside its
-        # envelope (measured 1.3-1.5x the grid kernel).
-        assert eng.last_kernel_used == "flash_unrolled"
+        assert eng.last_kernel_used == "flash"
 
     def test_singleton(self):
         assert get_engine() is get_engine()
@@ -242,7 +239,6 @@ class TestFullRegistry:
         for kind, ms in [
             (KernelKind.FUSED, 5.0),
             (KernelKind.FLASH, 3.0),
-            (KernelKind.FLASH_UNROLLED, 2.5),
             (KernelKind.RING, 2.0),
             (KernelKind.ULYSSES, 1.0),
         ]:
@@ -336,28 +332,6 @@ class TestFullRegistry:
         assert eng.last_kernel_used == "paged_decode"
         ref, _ = attention_reference(q, k, v)
         assert_close(out, ref, rtol=2e-3, atol=2e-3)
-
-    def test_int8_kernels_offered_in_quant_mode(self, rng):
-        """int8 kernels are opt-in via enable_int8/quant_mode="int8"
-        (ADVICE r3: an fp8 opt-in must not silently enable them); the
-        heuristic prefers the fully-int8 kernel and routing produces
-        in-gate results."""
-        set_global_config(auto_kernel_selection=False, flash_threshold=512)
-        eng = AttentionEngine(
-            router=AdaptiveRouter(exploration_rate=0.0, seed=0),
-            enable_int8=True,
-        )
-        q, k, v = make_qkv(rng, s=1024)
-        out, _ = eng(q, k, v, causal=True)
-        # Round 5: the unrolled kernel outranks the int8 grid family in
-        # the heuristic; int8 kinds remain offered (registry check below).
-        assert eng.last_kernel_used == "flash_unrolled"
-        ref, _ = attention_reference(q, k, v, causal=True)
-        err = float(
-            jnp.linalg.norm((out - ref).astype(jnp.float32))
-            / jnp.linalg.norm(ref.astype(jnp.float32))
-        )
-        assert err < 0.05
 
     def test_paged_decode_respects_kv_lens(self, rng):
         set_global_config(auto_kernel_selection=False)
@@ -583,52 +557,3 @@ class TestDenseMaskFlashRouting:
         )
         kinds = eng.router.eligible_kernels(w, eng._available_kernels(w))
         assert set(k.value for k in kinds) == {"fused", "flash"}
-
-
-class TestUnrolledKernelRouting:
-    """Round-5 unrolled-KV kernels in the registry."""
-
-    def test_heuristic_prefers_unrolled_when_supported(self, rng):
-        set_global_config(auto_kernel_selection=False, flash_threshold=512)
-        eng = AttentionEngine(router=AdaptiveRouter(exploration_rate=0.0, seed=0))
-        q, k, v = make_qkv(rng, s=1024)
-        out, _ = eng(q, k, v, causal=True)
-        assert eng.last_kernel_used == "flash_unrolled"
-        ref, _ = attention_reference(q, k, v, causal=True)
-        assert_close(out, ref, rtol=2e-2, atol=1e-2)
-
-    def test_key_mask_routes_unrolled_but_dense_does_not(self, rng):
-        """Round 5 (third pass): KEY masks ride the unrolled kernel via
-        the in-kernel bias form; DENSE (Sq, Skv) masks still cannot."""
-        set_global_config(auto_kernel_selection=False, flash_threshold=512)
-        eng = AttentionEngine(router=AdaptiveRouter(exploration_rate=0.0, seed=0))
-        q, k, v = make_qkv(rng, s=1024)
-        lens = jnp.asarray([700, 1000], jnp.int32)
-        mask = (jnp.arange(1024)[None] < lens[:, None])[:, None, None, :]
-        out, _ = eng(q, k, v, causal=True, mask=mask)
-        assert eng.last_kernel_used == "flash_unrolled"
-        ref, _ = attention_reference(q, k, v, mask=mask, causal=True)
-        assert_close(out, ref, rtol=2e-2, atol=1e-2)
-        # Dense (per-query) structure -> not a key mask -> not unrolled.
-        dense = jnp.asarray(rng.random((2, 1, 1024, 1024)) > 0.05)
-        dense = dense.at[:, :, :, 0].set(True)
-        out2, _ = eng(q, k, v, causal=True, mask=dense)
-        assert eng.last_kernel_used != "flash_unrolled"
-
-    def test_unrolled_not_offered_above_envelope(self, rng):
-        """S=16384 exceeds the measured VMEM envelope: the engine must
-        not offer the unrolled kernel there."""
-        from photonic_flash_attention_tpu.core.router import (
-            KernelKind,
-            WorkloadCharacteristics,
-        )
-
-        eng = AttentionEngine(router=AdaptiveRouter(exploration_rate=0.0, seed=0))
-        w = WorkloadCharacteristics(
-            batch_size=1, q_len=16384, kv_len=16384, num_heads=2, head_dim=64
-        )
-        assert KernelKind.FLASH_UNROLLED not in eng._available_kernels(w)
-        w2 = WorkloadCharacteristics(
-            batch_size=1, q_len=2048, kv_len=2048, num_heads=2, head_dim=64
-        )
-        assert KernelKind.FLASH_UNROLLED in eng._available_kernels(w2)

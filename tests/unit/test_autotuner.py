@@ -1,7 +1,6 @@
 """Autotuner candidate model + profile store unit tests."""
 
-import jax.numpy as jnp
-import numpy as np
+import pytest
 
 from photonic_flash_attention_tpu.core.autotuner import (
     Autotuner,
@@ -12,10 +11,12 @@ from photonic_flash_attention_tpu.core.autotuner import (
 
 class TestCandidateBlocks:
     def test_d128_includes_1024_square(self):
-        """The corrected VMEM model (only streamed q/k/v tiles are
-        double-buffered) must admit the measured-fastest D=128 int8-QK
-        tile (benchmarks/flash_d128_sweep.py)."""
-        assert (1024, 1024) in candidate_blocks(4096, 4096, 128)
+        """Candidates follow the Triton kernel's limits: the measured
+        D=128 tile (128 x 64) is offered, oversized tiles such as
+        1024 x 1024 are not."""
+        cands = candidate_blocks(4096, 4096, 128)
+        assert (128, 64) in cands
+        assert (1024, 1024) not in cands
 
     def test_small_seq_clamps(self):
         cands = candidate_blocks(256, 256, 64)
@@ -23,13 +24,23 @@ class TestCandidateBlocks:
         assert cands  # never empty
 
     def test_vmem_budget_excludes_oversized(self):
-        # At a (hypothetical) giant head dim the score tile dominates:
-        # the largest tiles must be filtered out.
-        cands = candidate_blocks(8192, 8192, 512)
-        assert (1024, 2048) not in cands
+        # The fp32 score tile plus accumulator must fit one program's
+        # registers: 128 x 128 at D=128 does not, at D=64 it does.
+        assert (128, 128) not in candidate_blocks(8192, 8192, 128)
+        assert (128, 128) in candidate_blocks(8192, 8192, 64)
 
     def test_never_empty_fallback(self):
-        assert candidate_blocks(64, 64, 64) == [(128, 128)]
+        assert candidate_blocks(8, 8, 64) == [(16, 16)]
+
+    @pytest.mark.parametrize("s,d", [(64, 64), (1024, 64), (4096, 128), (300, 80)])
+    def test_candidates_are_powers_of_two_within_smem(self, s, d):
+        from photonic_flash_attention_tpu.core.autotuner import _SMEM_BYTES
+
+        for bq, bkv in candidate_blocks(s, s, d):
+            assert bq & (bq - 1) == 0 and bkv & (bkv - 1) == 0
+            assert 16 <= bq <= 128 and 16 <= bkv <= 128
+            dp = 1 << (d - 1).bit_length()
+            assert (bq * dp + 4 * bkv * dp) * 2 <= _SMEM_BYTES
 
 
 class TestProfileStore:
@@ -45,23 +56,3 @@ class TestProfileStore:
         t2 = Autotuner(state_path=p)
         got2 = t2.lookup(key)
         assert got2 is not None and got2.block_q == 512
-
-
-class TestDAwareDefaults:
-    def test_int8qk_picks_1024_at_d128(self):
-        """Default-block resolution inside flash_attention_int8qk:
-        D>=128 with 1024-divisible seq -> 1024 tiles (interpret mode,
-        shape check only)."""
-        from photonic_flash_attention_tpu.ops.flash_fp8 import (
-            flash_attention_int8qk,
-        )
-
-        rng = np.random.default_rng(0)
-        # 1024-divisible seq at D=128: runs with the big default tiles.
-        q = jnp.asarray(rng.standard_normal((1, 1024, 2, 128)), jnp.float32)
-        out = flash_attention_int8qk(q, q, q, causal=True, interpret=True)
-        assert out.shape == q.shape
-        # Non-1024-divisible seq still works (512 default, padded).
-        q2 = jnp.asarray(rng.standard_normal((1, 640, 2, 128)), jnp.float32)
-        out2 = flash_attention_int8qk(q2, q2, q2, interpret=True)
-        assert out2.shape == q2.shape

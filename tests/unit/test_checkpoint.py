@@ -2,7 +2,7 @@
 
 The reference persists only the autonomous optimizer's learned state
 (reference core/autonomous_optimizer.py:537-576); this suite covers the
-TPU build's full checkpoint surface (SURVEY.md §5.4).
+this build's full checkpoint surface (SURVEY.md §5.4).
 """
 
 import os

@@ -114,13 +114,15 @@ class TestFlashKernel:
         assert rel_err_norm(out, ref) < 0.1
 
     def test_rejects_unaligned_block_sizes(self, rng):
-        """block_q/block_kv must be multiples of 128 — clear error, not
-        an obscure Mosaic trace failure (lane-replicated stats tiling)."""
+        """block_q/block_kv must be powers of two >= 16 (Triton tile
+        shapes) — a clear error, not an obscure lowering failure."""
         q = jnp.asarray(rng.standard_normal((1, 256, 2, 64)), jnp.float32)
-        with pytest.raises(ValueError, match="multiple of 128"):
+        with pytest.raises(ValueError, match="power of two"):
             flash_attention(q, q, q, block_q=128, block_kv=192)
-        with pytest.raises(ValueError, match="multiple of 128"):
+        with pytest.raises(ValueError, match="power of two"):
             flash_attention(q, q, q, block_q=96, block_kv=128)
+        with pytest.raises(ValueError, match="power of two"):
+            flash_attention(q, q, q, block_q=8, block_kv=64)
 
 
 class TestFlashMasked:

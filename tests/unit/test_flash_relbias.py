@@ -3,7 +3,7 @@
 The reference supports T5 by materializing its (1, H, Sq, Skv) bias and
 adding it to scores (reference integration/pytorch/convert.py:174-202 per
 -family configs; core attention adds additive masks). These tests gate
-the TPU-native version — bias rebuilt from iota inside the Pallas tile —
+the in-kernel version — bias rebuilt from iota inside the Pallas tile —
 against the same math done densely in XLA, including gradients w.r.t.
 the learned table.
 """

@@ -74,11 +74,64 @@ class TestResultCache:
         assert calls["n"] == 2
         assert f.cache.stats.hits == 1
 
-    def test_compile_cache_manager(self, tmp_path):
-        m = CompileCacheManager(cache_dir=str(tmp_path / "xla"))
+    def test_compile_cache_manager(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+        m = CompileCacheManager()
         m.enable()
         s = m.stats()
         assert s["enabled"] and s["dir"].endswith("xla")
+
+
+class TestCompileCacheDir:
+    """JAX_COMPILATION_CACHE_DIR when set; else .jax_cache/ in the checkout."""
+
+    @pytest.fixture(autouse=True)
+    def _restore_jax_cache_dir(self):
+        import jax
+
+        before = jax.config.jax_compilation_cache_dir
+        yield
+        jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_env_var_wins(self, tmp_path, monkeypatch):
+        import jax
+
+        from photonic_flash_attention_tpu.optimization.caching import (
+            compile_cache_dir,
+            enable_compile_cache,
+        )
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+        assert compile_cache_dir() == str(tmp_path / "c")
+        assert enable_compile_cache() == str(tmp_path / "c")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
+        assert (tmp_path / "c").is_dir()
+
+    def test_default_is_fixed_dir_in_checkout(self, monkeypatch):
+        import os
+
+        import photonic_flash_attention_tpu
+        from photonic_flash_attention_tpu.optimization.caching import compile_cache_dir
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(photonic_flash_attention_tpu.__file__))
+        assert compile_cache_dir() == os.path.join(root, ".jax_cache")
+
+    def test_no_other_path_is_read(self, monkeypatch):
+        from photonic_flash_attention_tpu.optimization.caching import compile_cache_dir
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setenv("PFA_COMPILE_CACHE", "/elsewhere")
+        assert compile_cache_dir().endswith(".jax_cache")
+
+    def test_checkout_cache_is_gitignored(self):
+        import os
+
+        import photonic_flash_attention_tpu
+
+        root = os.path.dirname(os.path.dirname(photonic_flash_attention_tpu.__file__))
+        with open(os.path.join(root, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
 
 
 class TestProfiler:

@@ -191,7 +191,7 @@ class TestGQABuckets:
 
 
 class TestDominancePruning:
-    AVAIL3 = (KernelKind.FUSED, KernelKind.FLASH, KernelKind.FLASH_INT8QK)
+    AVAIL3 = (KernelKind.FUSED, KernelKind.FLASH, KernelKind.ULYSSES)
 
     def _teach(self, r, loser, winner, n_buckets=3, margin=3.0):
         """Measure winner beating loser by `margin`x in n distinct buckets."""
@@ -203,8 +203,8 @@ class TestDominancePruning:
 
     def test_dominated_kernel_not_measured_in_new_bucket(self):
         r = AdaptiveRouter(exploration_rate=0.0, seed=0)
-        self._teach(r, KernelKind.FLASH_INT8QK, KernelKind.FLASH)
-        # Fresh bucket: FUSED and FLASH are unmeasured there; INT8QK is
+        self._teach(r, KernelKind.ULYSSES, KernelKind.FLASH)
+        # Fresh bucket: FUSED and FLASH are unmeasured there; ULYSSES is
         # dominated by FLASH and must never be offered for measurement.
         w_new = wc(q_len=8192)
         chosen = set()
@@ -212,31 +212,31 @@ class TestDominancePruning:
             k = r.select_kernel(w_new, self.AVAIL3)
             chosen.add(k)
             r.update_performance(k, w_new, 1.0)
-        assert KernelKind.FLASH_INT8QK not in chosen
-        assert r.get_stats()["measurements_pruned"].get("flash_int8qk", 0) > 0
+        assert KernelKind.ULYSSES not in chosen
+        assert r.get_stats()["measurements_pruned"].get("ulysses", 0) > 0
 
     def test_close_races_are_not_pruned(self):
         """A <20% margin must NOT suppress measurement."""
         r = AdaptiveRouter(exploration_rate=0.0, seed=0)
-        self._teach(r, KernelKind.FLASH_INT8QK, KernelKind.FLASH, margin=1.1)
+        self._teach(r, KernelKind.ULYSSES, KernelKind.FLASH, margin=1.1)
         w_new = wc(q_len=8192)
         chosen = set()
         for _ in range(12):
             k = r.select_kernel(w_new, self.AVAIL3)
             chosen.add(k)
             r.update_performance(k, w_new, 1.0)
-        assert KernelKind.FLASH_INT8QK in chosen
+        assert KernelKind.ULYSSES in chosen
 
     def test_two_shared_buckets_insufficient(self):
         r = AdaptiveRouter(exploration_rate=0.0, seed=0)
-        self._teach(r, KernelKind.FLASH_INT8QK, KernelKind.FLASH, n_buckets=2)
+        self._teach(r, KernelKind.ULYSSES, KernelKind.FLASH, n_buckets=2)
         w_new = wc(q_len=8192)
         chosen = set()
         for _ in range(12):
             k = r.select_kernel(w_new, self.AVAIL3)
             chosen.add(k)
             r.update_performance(k, w_new, 1.0)
-        assert KernelKind.FLASH_INT8QK in chosen
+        assert KernelKind.ULYSSES in chosen
 
     def test_fresh_bucket_single_warmup_choice_per_call(self):
         """Measurement budget (VERDICT r4 #7): each call to select_kernel
@@ -251,35 +251,35 @@ class TestDominancePruning:
 
 
 class TestEnergyArbitration:
-    """VERDICT r4 #10: config.energy_weight blends measured latency with
-    the roofline-energy estimate so lower-HBM-traffic kernels win ties."""
+    """config.energy_weight blends measured latency with the
+    roofline-energy estimate so lower-traffic kernels win ties."""
 
     def _measured_router(self, energy):
         r = AdaptiveRouter(exploration_rate=0.0, seed=0)
         r.energy_model = energy
         w = wc(q_len=1024)
         for _ in range(3):
-            # FLASH marginally faster; INT8QK much cheaper energetically.
+            # FLASH marginally faster; FUSED much cheaper energetically.
             r.update_performance(KernelKind.FLASH, w, 1.00)
-            r.update_performance(KernelKind.FLASH_INT8QK, w, 1.05)
+            r.update_performance(KernelKind.FUSED, w, 1.05)
         return r, w
 
     @staticmethod
     def _energy(kind, w, lat):
-        return 30.0 if kind == KernelKind.FLASH_INT8QK else 300.0
+        return 30.0 if kind == KernelKind.FUSED else 300.0
 
     def test_default_ranks_by_latency(self):
         r, w = self._measured_router(self._energy)
-        avail = (KernelKind.FLASH, KernelKind.FLASH_INT8QK)
+        avail = (KernelKind.FLASH, KernelKind.FUSED)
         assert r.select_kernel(w, avail) == KernelKind.FLASH
 
     def test_energy_weight_flips_near_tie(self):
         set_global_config(energy_weight=0.5)
         r, w = self._measured_router(self._energy)
-        avail = (KernelKind.FLASH, KernelKind.FLASH_INT8QK)
-        # scores: flash 0.5*1.0 + 0.5*(300/170)=1.38; int8qk 0.5*1.05
-        # + 0.5*(30/170)=0.61 -> int8qk wins.
-        assert r.select_kernel(w, avail) == KernelKind.FLASH_INT8QK
+        avail = (KernelKind.FLASH, KernelKind.FUSED)
+        # scores at the CPU row's 100 W: flash 0.5*1.0 + 0.5*(300/100)=2.0;
+        # fused 0.5*1.05 + 0.5*(30/100)=0.675 -> fused wins.
+        assert r.select_kernel(w, avail) == KernelKind.FUSED
 
     def test_energy_model_failure_falls_back_to_latency(self):
         set_global_config(energy_weight=0.5)
@@ -288,5 +288,5 @@ class TestEnergyArbitration:
             raise RuntimeError("no device")
 
         r, w = self._measured_router(broken)
-        avail = (KernelKind.FLASH, KernelKind.FLASH_INT8QK)
+        avail = (KernelKind.FLASH, KernelKind.FUSED)
         assert r.select_kernel(w, avail) == KernelKind.FLASH

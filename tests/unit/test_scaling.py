@@ -153,7 +153,7 @@ class TestAutoscaler:
         assert a._predict_utilization() > 0.9
 
     def test_cost_report(self):
-        a = AutoScalingOrchestrator(replica_type="v5e-1")
+        a = AutoScalingOrchestrator(replica_type="h100-1")
         r = a.cost_report()
         assert r["hourly_cost_usd"] > 0
         assert "startup_time_s" in r

@@ -35,7 +35,7 @@ class TestCollectiveBytes:
 
 class TestTelemetry:
     def test_records_and_reports(self):
-        t = CollectiveTelemetry(ici_gbps=100.0)
+        t = CollectiveTelemetry(link_gbps=100.0)
         t.record("seq", "ppermute", 1 << 20, 4)
         t.record("seq", "ppermute", 1 << 20, 4)
         t.record("model", "psum", 1 << 20, 2)
@@ -45,7 +45,7 @@ class TestTelemetry:
         assert "psum" in s["axes"]["model"]["by_op"]
 
     def test_congestion_detection(self):
-        t = CollectiveTelemetry(ici_gbps=1e-6)  # tiny capacity
+        t = CollectiveTelemetry(link_gbps=1e-6)  # tiny capacity
         t.record("seq", "all_gather", 10 << 20, 8)
         t.record("seq", "all_gather", 10 << 20, 8)
         assert t.get_stats()["congestion_events"] >= 1
@@ -53,7 +53,7 @@ class TestTelemetry:
 
     def test_utilization_capped_at_one(self):
         """Analytic busy fraction never exceeds 100% (round-2 bug: 131x)."""
-        t = CollectiveTelemetry(ici_gbps=1e-6)
+        t = CollectiveTelemetry(link_gbps=1e-6)
         for _ in range(50):
             t.record("seq", "all_gather", 100 << 20, 8)
         assert 0.0 <= t.utilization("seq") <= 1.0
